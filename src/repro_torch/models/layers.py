@@ -1,0 +1,133 @@
+"""Core layers: norms, RoPE, MLPs, embeddings — functions over dicts of tensors.
+
+Counterpart of ``repro.models.layers`` (the decode path's share of it).
+Parameters are nested dicts of tensors; init functions mirror apply
+functions. Weights are drawn from an explicit CPU ``torch.Generator`` in
+float32 and then moved, so one seed gives the same weights on every device.
+``device="meta"`` gives the shapes and dtypes without drawing anything (the
+counterpart of ``jax.eval_shape``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ArchConfig
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ----------------------------------------------------------------- init utils
+def dense_init(gen: torch.Generator, shape, dtype, device: torch.device,
+               scale: float | None = None) -> torch.Tensor:
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    return w.to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------- norms
+def init_norm(cfg: ArchConfig, d: int, device: torch.device) -> dict:
+    # norm parameters stay float32 whatever the model dtype, as in the reference
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
+    else:
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).
+
+    Split-halves rotation (not interleaved), computed in float32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)             # (hd/2,)
+    angles = positions[..., :, None].float() * freqs              # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------------ MLP
+def init_mlp(gen, cfg: ArchConfig, d: int, ff: int, device) -> dict:
+    dt = dtype_of(cfg)
+    p = {}
+    if cfg.mlp_gated:
+        p["w_gate"] = dense_init(gen, (d, ff), dt, device)
+    p["w_up"] = dense_init(gen, (d, ff), dt, device)
+    p["w_out"] = dense_init(gen, (ff, d), dt, device)
+    if cfg.mlp_bias:
+        p["b_up"] = torch.zeros((ff,), dtype=dt, device=device)
+        p["b_out"] = torch.zeros((d,), dtype=dt, device=device)
+    return p
+
+
+def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` / ``jax.nn.gelu`` (tanh form) written out op by op as
+    jax.nn writes them, so a bf16 model rounds where the reference rounds
+    (``F.silu``/``F.gelu`` round once and differ from it by an ulp on ~40%
+    of bf16 elements)."""
+    if cfg.mlp_act == "silu":
+        return x * (1 / (1 + torch.exp(-x)))
+    c = torch.tensor((2 / torch.pi) ** 0.5, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3)))))
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    up = x @ p["w_up"]
+    if cfg.mlp_bias:
+        up = up + p["b_up"]
+    h = _act(cfg, x @ p["w_gate"]) * up if cfg.mlp_gated else _act(cfg, up)
+    out = h @ p["w_out"]
+    if cfg.mlp_bias:
+        out = out + p["b_out"]
+    return out
+
+
+# ----------------------------------------------------------------- embeddings
+def init_embedding(gen, cfg: ArchConfig, device) -> dict:
+    dt = dtype_of(cfg)
+    p = {"tokens": dense_init(gen, (cfg.vocab_size, cfg.d_model), dt, device,
+                              scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, device)
+    if cfg.pos_embedding == "learned":
+        # sized as in the reference so its parameters transfer one to one
+        p["positions"] = dense_init(gen, (32768 + 8, cfg.d_model), dt, device,
+                                    scale=0.02)
+    return p
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return p["tokens"][tokens.long()]
+
+
+def logits(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``h @ w`` in the model dtype, then widened to float32."""
+    w = p["tokens"].T if cfg.tie_embeddings else p["head"]
+    return (h @ w).float()

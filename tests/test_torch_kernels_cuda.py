@@ -1,0 +1,52 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip where there is no CUDA device. This file imports
+torch and the port only, so it runs where JAX is absent:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_decode import kernel as fd_kernel
+from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+
+# (B, H, K, dk, dv, S): the reference's kernel test shapes, then the serving
+# shape of exanest-lm-100m at a window S that is no multiple of a pass
+SHAPES = [(2, 8, 2, 64, 64, 512), (1, 4, 4, 128, 128, 1024),
+          (2, 8, 1, 64, 128, 256), (8, 12, 4, 64, 64, 1000)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_flash_decode_matches_plain_on_card(shape, dtype, cuda_device):
+    B, H, K, dk, dv, S = shape
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(cuda_device, dtype)
+               for s in ((B, H, dk), (B, S, K, dk), (B, S, K, dv)))
+    lengths = rng.integers(1, S + 1, B).astype(np.int32)
+    lengths[0] = S
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    before = fd_kernel.launches
+    got = fd_kernel.flash_decode(q, k, v, lengths)
+    want = decode_attention_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert fd_kernel.launches == before + 1
+    # f32: summation order only; bf16: the reference's kernel tolerance
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
