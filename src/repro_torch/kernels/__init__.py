@@ -8,4 +8,7 @@ tensors the kernel).
 
 * ``flash_decode`` — decode attention over a KV cache with per-row lengths
   (replaces ``repro.kernels.flash_decode``; the serving path).
+* ``allreduce_combine`` — elementwise sum/max/min of P parts (replaces
+  ``repro.kernels.allreduce_combine``; the reduce stages of the
+  hierarchical and compressed gradient sync).
 """

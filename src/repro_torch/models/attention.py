@@ -1,20 +1,24 @@
-"""Attention, decode slice: GQA (+RoPE) with head padding.
+"""Attention: GQA (+RoPE) with head padding, for decode and for training.
 
-Counterpart of ``repro.models.attention`` for one new token against a KV
-cache. ``gqa_decode`` routes its attention through
+Counterpart of ``repro.models.attention``. ``gqa_decode`` takes one new
+token against a KV cache and routes its attention through
 :func:`repro_torch.kernels.flash_decode.ops.decode_attn`: the Hopper kernel
-on CUDA tensors, its plain version on CPU tensors. Layouts are the
-reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo`` (H, hd, d),
-caches (B, S, K, hd).
+on CUDA tensors, its plain version on CPU tensors. ``gqa_attention`` runs a
+full sequence (train and prefill) through ``flash_attention``, the
+reference's double-chunked online softmax with its custom backward, in
+plain PyTorch: the reference computes it outside any Pallas kernel. Layouts
+are the reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo``
+(H, hd, d), caches (B, S, K, hd).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.flash_decode.ops import decode_attn
-from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+from repro_torch.kernels.flash_decode.ref import NEG_INF, decode_attention_ref
 from repro_torch.models.layers import apply_rope, dense_init, dtype_of
 
 
@@ -116,3 +120,175 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     out = _head_mask(cfg, out)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return out, cache
+
+
+# ------------------------------------------------------- flash (train/prefill)
+def _block_mask(s, i, j, qc, kc, causal, kv_valid):
+    """s: (B,K,rep,qc,kc) scores of q block i against kv block j."""
+    kpos = j * kc + torch.arange(kc, device=s.device)
+    if causal:
+        qpos = i * qc + torch.arange(qc, device=s.device)
+        mask = (qpos[:, None] >= kpos[None, :]) & (kpos[None, :] < kv_valid)
+        return torch.where(mask, s, NEG_INF)
+    return torch.where(kpos < kv_valid, s, NEG_INF)
+
+
+def _skipped(i, j, qc, kc, causal, kv_valid) -> bool:
+    """Whether every score of block (i, j) is masked. Such a block adds
+    exactly nothing in the reference (p = exp(NEG_INF - m) = 0 once row max
+    m is finite, which block 0 makes it), so leaving it out changes no bit."""
+    return j * kc >= kv_valid or (causal and j * kc > (i + 1) * qc - 1)
+
+
+def _blocks(t, n, c, K):
+    """(B, n*c, H, d) -> list of n blocks (B, c, K, H // K, d)."""
+    B, _, H, d = t.shape
+    return [t[:, b * c:(b + 1) * c].reshape(B, c, K, H // K, d)
+            for b in range(n)]
+
+
+def _flash_fwd_impl(q, k, v, causal, qc, kc, kv_valid):
+    """Online-softmax forward over (q block, kv block) pairs. bf16 operands
+    are widened to float32 for the products (exact), so every product sums
+    in float32 as the reference's ``preferred_element_type`` asks."""
+    B, Sq, H, dk = q.shape
+    _, Skv, K, dv = v.shape
+    rep = H // K
+    nq, nk = Sq // qc, Skv // kc
+    scale = dk ** -0.5
+    qb = _blocks(q, nq, qc, K)
+    kb = [t[:, :, :, 0] for t in _blocks(k, nk, kc, K)]
+    vb = [t[:, :, :, 0] for t in _blocks(v, nk, kc, K)]
+    outs, lses = [], []
+    for i in range(nq):
+        q_i = qb[i].float()
+        m = torch.full((B, K, rep, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, K, rep, qc, dv), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            if _skipped(i, j, qc, kc, causal, kv_valid):
+                continue
+            s = torch.einsum("bqgrh,bkgh->bgrqk", q_i, kb[j].float()) * scale
+            s = _block_mask(s, i, j, qc, kc, causal, kv_valid)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).float(),
+                              vb[j].float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out_i = acc / torch.clamp(l, min=1e-30)[..., None]
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+        # (B,K,rep,qc,dv) -> (B,qc,H,dv)
+        outs.append(out_i.to(q.dtype).permute(0, 3, 1, 2, 4)
+                    .reshape(B, qc, H, dv))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)   # lse (B,K,rep,Sq)
+
+
+def _flash_bwd_impl(q, k, v, out, lse, dout, causal, qc, kc, kv_valid):
+    """Blockwise recompute: p from the saved lse, D = rowsum(dout * out),
+    ds = p * (dp - D) * scale; p and ds are cast to q's dtype before their
+    products, where the reference casts them."""
+    B, Sq, H, dk = q.shape
+    _, Skv, K, dv = v.shape
+    rep = H // K
+    nq, nk = Sq // qc, Skv // kc
+    scale = dk ** -0.5
+    D = torch.sum(dout.float() * out.float(), dim=-1)            # (B,Sq,H)
+    D = D.reshape(B, Sq, K, rep).permute(0, 2, 3, 1)              # (B,K,rep,Sq)
+    qb = _blocks(q, nq, qc, K)
+    dob = _blocks(dout, nq, qc, K)
+    kb = [t[:, :, :, 0] for t in _blocks(k, nk, kc, K)]
+    vb = [t[:, :, :, 0] for t in _blocks(v, nk, kc, K)]
+    dq = [torch.zeros((B, qc, K, rep, dk), dtype=torch.float32,
+                      device=q.device) for _ in range(nq)]
+    dks, dvs = [], []
+    for j in range(nk):
+        k_j, v_j = kb[j].float(), vb[j].float()
+        dk_j = torch.zeros((B, kc, K, dk), dtype=torch.float32, device=q.device)
+        dv_j = torch.zeros((B, kc, K, dv), dtype=torch.float32, device=q.device)
+        for i in range(nq):
+            if _skipped(i, j, qc, kc, causal, kv_valid):
+                continue
+            q_i, do_i = qb[i].float(), dob[i].float()
+            D_i = D[..., i * qc:(i + 1) * qc]
+            lse_i = lse[..., i * qc:(i + 1) * qc]
+            s = torch.einsum("bqgrh,bkgh->bgrqk", q_i, k_j) * scale
+            s = _block_mask(s, i, j, qc, kc, causal, kv_valid)
+            p = torch.exp(s - lse_i[..., None])                   # (B,K,rep,qc,kc)
+            dv_j = dv_j + torch.einsum("bgrqk,bqgrd->bkgd",
+                                       p.to(q.dtype).float(), do_i)
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", do_i, v_j)
+            ds = (p * (dp - D_i[..., None]) * scale).to(q.dtype).float()
+            dk_j = dk_j + torch.einsum("bgrqk,bqgrh->bkgh", ds, q_i)
+            dq[i] = dq[i] + torch.einsum("bgrqk,bkgh->bqgrh", ds, k_j)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    dq_ = torch.cat(dq, dim=1).reshape(B, Sq, H, dk).to(q.dtype)
+    dk_ = torch.cat(dks, dim=1).to(k.dtype)
+    dv_ = torch.cat(dvs, dim=1).to(v.dtype)
+    return dq_, dk_, dv_
+
+
+class _Flash(torch.autograd.Function):
+    """FlashAttention-style custom backward: forward saves only (q, k, v,
+    out, lse), backward recomputes probabilities blockwise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, qc, kc, kv_valid):
+        out, lse = _flash_fwd_impl(q, k, v, causal, qc, kc, kv_valid)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, qc, kc, kv_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, dout.contiguous(),
+                                     *ctx.cfg)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """q: (B,Sq,H,dk); k: (B,Skv,K,dk); v: (B,Skv,K,dv); H % K == 0.
+
+    Double-chunked online-softmax attention (``repro.models.attention.
+    flash_attention``) in plain PyTorch with its custom backward. Ragged
+    lengths are padded up to chunk multiples: padded keys are masked out,
+    padded query rows dropped."""
+    B, Sq, H, dk = q.shape
+    _, Skv, K, dv = v.shape
+    qc = min(q_chunk, Sq)
+    kc = min(kv_chunk, Skv)
+    Sq_p = -(-Sq // qc) * qc
+    Skv_p = -(-Skv // kc) * kc
+    if Sq_p != Sq:
+        q = F.pad(q, (0, 0, 0, 0, 0, Sq_p - Sq))
+    if Skv_p != Skv:
+        k = F.pad(k, (0, 0, 0, 0, 0, Skv_p - Skv))
+        v = F.pad(v, (0, 0, 0, 0, 0, Skv_p - Skv))
+    out = _Flash.apply(q, k, v, causal, qc, kc, Skv)
+    return out[:, :Sq]
+
+
+def gqa_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
+                  causal: bool = True) -> tuple[torch.Tensor, dict]:
+    """Full-sequence (train/prefill) GQA. Returns (out, cache). KV is
+    repeated to one head per query head when the (padded) query heads are no
+    multiple of the KV heads, as the reference's ``mha_ize`` does on one
+    device."""
+    q, k, v = gqa_qkv(p, x, cfg, positions)
+    Hp, K = q.shape[2], k.shape[2]
+    if Hp % K != 0:
+        r = -(-Hp // K)
+        k = k.repeat_interleave(r, dim=2)[:, :, :Hp]
+        v = v.repeat_interleave(r, dim=2)[:, :, :Hp]
+    out = flash_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    out = _head_mask(cfg, out)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, {"k": k, "v": v}

@@ -1,6 +1,7 @@
 """Core layers: norms, RoPE, MLPs, embeddings — functions over dicts of tensors.
 
-Counterpart of ``repro.models.layers`` (the decode path's share of it).
+Counterpart of ``repro.models.layers``: the decode path's share of it and,
+for training, ``softmax_xent`` and the chunked ``lm_loss``.
 Parameters are nested dicts of tensors; init functions mirror apply
 functions. Weights are drawn from an explicit CPU ``torch.Generator`` in
 float32 and then moved, so one seed gives the same weights on every device.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 
@@ -131,3 +133,49 @@ def logits(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """``h @ w`` in the model dtype, then widened to float32."""
     w = p["tokens"].T if cfg.tie_embeddings else p["head"]
     return (h @ w).float()
+
+
+# --------------------------------------------------------------------- loss
+def softmax_xent(logits_: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Stable cross entropy; logits (..., V) f32, labels int (...)."""
+    m = torch.amax(logits_, dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits_ - m), dim=-1))
+    gold = torch.take_along_dim(logits_, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    return lse - gold
+
+
+def _chunk_loss(hc: torch.Tensor, tc: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    lg = (hc @ w).float()
+    valid = tc >= 0
+    ls = softmax_xent(lg, torch.clamp(tc, min=0))
+    return torch.sum(torch.where(valid, ls, 0.0))
+
+
+def lm_loss(p: dict, h: torch.Tensor, targets: torch.Tensor, cfg: ArchConfig,
+            *, chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross entropy with the head projection fused into a
+    loop over sequence chunks, each recomputed in backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so the
+    (B, S, V) logits are never materialized; at most one chunk's (B, c, V)
+    float32 logits exist at a time.
+
+    h: (B, T, d) hidden states aligned with ``targets`` (B, T): the caller
+    has already applied the shift. Pads T to a chunk multiple, with targets
+    -1 (ignored) on the padding."""
+    w = p["tokens"].T if cfg.tie_embeddings else p["head"]
+    B, T, d = h.shape
+    # adaptive chunk: cap the transient (B, c, V) f32 logits at ~1 GB
+    c = max(64, min(chunk, (1 << 30) // max(1, cfg.vocab_size * 4 * B)))
+    c = min(c, T)
+    Tp = -(-T // c) * c
+    if Tp != T:
+        h = F.pad(h, (0, 0, 0, Tp - T))
+        targets = F.pad(targets, (0, Tp - T), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, Tp, c):
+        tot = tot + checkpoint(_chunk_loss, h[:, i:i + c], targets[:, i:i + c],
+                               w, use_reentrant=False)
+    n = torch.sum(targets >= 0)
+    return tot / torch.clamp(n, min=1)

@@ -1,11 +1,12 @@
-"""Decoder-only dense LM: the serving (decode) path.
+"""Decoder-only dense LM: training (``loss_fn``), prefill and decode.
 
 Counterpart of the dense branches of ``repro.models.transformer``. The
 parameter tree keeps the reference's layout, with every block parameter
 stacked on a leading layer axis (``dense_stack.attn.wq`` is (L, d, H, hd)),
 so JAX parameters transfer one to one by tree path (see
 :mod:`repro_torch.bridge`). The reference's ``lax.scan`` over layers is a
-Python loop over that leading axis.
+Python loop over that leading axis; on the full-sequence path each layer
+runs under ``torch.utils.checkpoint``, as the reference remats its block.
 """
 
 from __future__ import annotations
@@ -13,13 +14,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_util
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
                                        embed_tokens, init_embedding, init_mlp,
-                                       init_norm, logits)
+                                       init_norm, lm_loss, logits)
 
 
 def _unported(cfg: ArchConfig) -> str | None:
@@ -55,6 +58,15 @@ def _ffn(p, h, cfg, kind):
     return apply_mlp(p["ffn"], h, cfg)
 
 
+def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions):
+    """Full-sequence causal block. Returns (x, cache)."""
+    h = apply_norm(p["ln1"], x, cfg)
+    y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions)
+    x = x + y
+    h2 = apply_norm(p["ln2"], x, cfg)
+    return x + _ffn(p, h2, cfg, kind), cache
+
+
 def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos):
     h = apply_norm(p["ln1"], x, cfg)
     y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos)
@@ -64,12 +76,6 @@ def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos):
 
 
 # ------------------------------------------------------------ stacked layers
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def init_stack(gen, cfg: ArchConfig, kind: str, n: int, device):
     if n == 0:
         return None
@@ -83,12 +89,33 @@ def init_stack(gen, cfg: ArchConfig, kind: str, n: int, device):
     return gather(blocks)
 
 
+def stack_forward(stack, x, cfg, kind, *, positions):
+    """Run the stacked blocks layer by layer, each recomputed in backward;
+    returns (x, caches) with caches k/v stacked as (L, B, S, K, hd)."""
+    n = stack["ln1"]["scale"].shape[0]
+    ks, vs = [], []
+    for i in range(n):
+        layer_p = tree_util.tree_map(lambda t: t[i], stack)
+
+        def body(carry, layer_p=layer_p):
+            return block_forward(layer_p, carry, cfg, kind,
+                                 positions=positions)
+
+        if torch.is_grad_enabled():
+            x, cache = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, cache = body(x)
+        ks.append(cache["k"])
+        vs.append(cache["v"])
+    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
 def stack_decode(stack, x, cfg, kind, *, caches, pos):
     """Run the stacked blocks layer by layer. ``caches`` k/v are (L,B,S,K,hd);
     layer i writes its new KV into ``caches[...][i]`` IN PLACE (the
     reference's scan returns new caches instead)."""
     for i in range(caches["k"].shape[0]):
-        layer_p = _tree_map(lambda t: t[i], stack)
+        layer_p = tree_util.tree_map(lambda t: t[i], stack)
         x, _ = block_decode(layer_p, x, cfg, kind, pos=pos,
                             cache={"k": caches["k"][i], "v": caches["v"][i]})
     return x, caches
@@ -97,7 +124,8 @@ def stack_decode(stack, x, cfg, kind, *, caches, pos):
 # ------------------------------------------------------------------ LM model
 @dataclasses.dataclass(frozen=True)
 class LM:
-    """Decoder-only dense LM: ``init``, ``init_cache`` and ``decode_step``."""
+    """Decoder-only dense LM: ``init``, ``loss_fn``, ``prefill``,
+    ``init_cache`` and ``decode_step``."""
     cfg: ArchConfig
 
     def __post_init__(self):
@@ -116,6 +144,41 @@ class LM:
             "dense_stack": init_stack(gen, cfg, "dense", cfg.n_layers, device),
             "final_norm": init_norm(cfg, cfg.d_model, device),
         }
+
+    # -------- shared trunk
+    def _inputs(self, params: dict, batch: dict):
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        B, S = x.shape[0], x.shape[1]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        if cfg.pos_embedding == "learned":
+            x = x + params["embed"]["positions"][:S]
+        return x, positions
+
+    def _trunk(self, params: dict, x, positions):
+        cfg = self.cfg
+        x, caches = stack_forward(params["dense_stack"], x, cfg, "dense",
+                                  positions=positions)
+        return apply_norm(params["final_norm"], x, cfg), {"dense": caches}
+
+    # -------- train
+    def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
+        """Mean next-token cross entropy of ``batch`` (``tokens``,
+        ``labels`` (B, S) int). ``pctx`` is accepted for the reference's
+        signature; the port's data parallelism syncs gradients outside the
+        model (:mod:`repro_torch.parallel.grad_sync`)."""
+        x, positions = self._inputs(params, batch)
+        h, _ = self._trunk(params, x, positions)
+        labels = batch["labels"]
+        return lm_loss(params["embed"], h[:, :-1], labels[:, 1:], self.cfg)
+
+    # -------- serving
+    def prefill(self, params: dict, batch: dict, pctx=None):
+        """Logits of the last position (B, 1, V) float32 and the per-layer
+        KV caches ``{"dense": {"k", "v"}}`` each (L, B, S, K, hd)."""
+        x, positions = self._inputs(params, batch)
+        h, caches = self._trunk(params, x, positions)
+        return logits(params["embed"], h[:, -1:, :], self.cfg), caches
 
     def decode_step(self, params: dict, caches: dict, batch: dict):
         """One token per row. ``batch``: ``token`` (B,) and ``pos`` (scalar or

@@ -1,0 +1,151 @@
+"""Training loop: the train-step builder and a small ``Trainer``.
+
+Counterpart of ``repro.train.loop``. PyTorch runs eagerly, so there is no
+``jit``: ``make_train_step`` returns a plain function. Gradients come from
+``torch.autograd.grad`` over detached copies of the parameter leaves; the
+step is functional like the reference's (new parameter and optimizer
+tensors, the inputs untouched).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import tree as tree_util
+from repro_torch.device import resolve_device
+from repro_torch.parallel.ctx import make_parallel_ctx
+from repro_torch.parallel.grad_sync import sync_gradients
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+
+#: what ``sync_strategy="auto"`` waits for
+AUTO_SYNC_ITEM = ("the planner's strategy='auto' needs the port's copies of "
+                  "core/comm, core/machine and core/planner (ROADMAP.md "
+                  "queue 1 item 10)")
+
+
+def _value_and_grad(model, params, batch, pctx):
+    leaves = [p.detach().requires_grad_(True)
+              for p in tree_util.leaves(params)]
+    with torch.enable_grad():
+        loss = model.loss_fn(tree_util.unflatten(params, leaves), batch, pctx)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), tree_util.unflatten(params, list(grads))
+
+
+def make_train_step(model, opt_cfg: AdamWConfig, pctx=None,
+                    microbatches: int = 1,
+                    accum_dtype: torch.dtype = torch.float32,
+                    sync_fn: Callable | None = None) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics). With ``microbatches > 1``, gradients accumulate in
+    ``accum_dtype`` over sequential slices of the batch rows. ``sync_fn``
+    (grads -> grads) runs after accumulation, before the optimizer: the
+    data-parallel gradient sync hook (see ``Trainer.make_step``)."""
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, grads = _value_and_grad(model, params, batch, pctx)
+        else:
+            loss = torch.zeros((), dtype=torch.float32)
+            grads = None
+            for i in range(microbatches):
+                mb = {k: v[i * (v.shape[0] // microbatches):
+                           (i + 1) * (v.shape[0] // microbatches)]
+                      for k, v in batch.items()}
+                l_i, g_i = _value_and_grad(model, params, mb, pctx)
+                loss = loss.to(l_i.device) + l_i
+                if grads is None:
+                    grads = tree_util.tree_map(
+                        lambda p: torch.zeros(p.shape, dtype=accum_dtype,
+                                              device=p.device), params)
+                grads = tree_util.tree_map(lambda a, b: a + b.to(a.dtype),
+                                           grads, g_i)
+            loss = loss / microbatches
+            grads = tree_util.tree_map(lambda g: g / microbatches, grads)
+        with torch.no_grad():
+            if sync_fn is not None:
+                grads = sync_fn(grads)
+            new_params, new_opt, metrics = adamw_update(grads, opt_state,
+                                                        params, opt_cfg)
+        metrics["loss"] = loss
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Minimal driver used by the launcher and the fault-tolerance tests.
+
+    With ``mesh`` set (a :class:`repro_torch.launch.mesh.ProcessMesh`),
+    gradients are synchronized across its data-parallel axes each step via
+    :func:`repro_torch.parallel.grad_sync.sync_gradients` and divided by the
+    DP world size (:meth:`make_sync`). ``sync_strategy`` is ``"flat"``,
+    ``"hierarchical"`` or ``"compressed"``; ``"auto"`` (the reference's default, which asks the
+    collective planner) raises ``NotImplementedError`` with a mesh: the
+    port never quietly picks another strategy."""
+    model: Any
+    opt_cfg: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    pctx: Any = None
+    mesh: Any = None
+    sync_strategy: str = "auto"
+    device: Any = None
+
+    def init_state(self, gen: torch.Generator) -> dict:
+        params = self.model.init(gen, device=resolve_device(self.device))
+        return {"params": params, "opt": adamw_init(params, self.opt_cfg)}
+
+    def make_sync(self) -> Callable:
+        """The mesh's gradient sync, grads -> grads: ``sync_gradients`` with
+        ``sync_strategy`` over the :class:`ParallelCtx` of the mesh, the sum
+        divided by its DP size."""
+        ctx = make_parallel_ctx(self.mesh)
+        if not ctx.dp_axes:
+            raise ValueError(
+                "Trainer(mesh=...) synchronizes over DP axes named "
+                f"'data'/'pod'; mesh has {self.mesh.axis_names}")
+        if self.sync_strategy == "auto":
+            raise NotImplementedError(
+                f"sync_strategy='auto' is not ported: {AUTO_SYNC_ITEM}; "
+                "pass 'flat', 'hierarchical' or 'compressed'")
+        return functools.partial(sync_gradients, mesh=ctx.mesh,
+                                 strategy=self.sync_strategy,
+                                 mean_over=ctx.dp_size)
+
+    def make_step(self, sync_fn: Callable | None = None) -> Callable:
+        """``fn(state, batch) -> (state, metrics)``. ``sync_fn`` replaces the
+        mesh's :meth:`make_sync` (e.g. a ``CompressedSync`` carrying error
+        feedback between steps)."""
+        if sync_fn is None and self.mesh is not None:
+            sync_fn = self.make_sync()
+        step = make_train_step(self.model, self.opt_cfg, self.pctx,
+                               sync_fn=sync_fn)
+
+        def fn(state, batch):
+            p, o, m = step(state["params"], state["opt"], batch)
+            return {"params": p, "opt": o}, m
+
+        return fn
+
+    def fit(self, state, data_iter, n_steps: int, *, log_every: int = 10,
+            callback=None) -> tuple[dict, list]:
+        step_fn = self.make_step()
+        history = []
+        t0 = time.perf_counter()
+        for i, batch in enumerate(data_iter):
+            if i >= n_steps:
+                break
+            state, metrics = step_fn(state, batch)
+            if i % log_every == 0 or i == n_steps - 1:
+                loss = float(metrics["loss"])
+                history.append({"step": i, "loss": loss,
+                                "t": time.perf_counter() - t0})
+                if callback:
+                    callback(history[-1])
+        return state, history

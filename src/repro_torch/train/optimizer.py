@@ -1,0 +1,143 @@
+"""AdamW with optional block-wise int8 state quantization.
+
+Counterpart of ``repro.train.optimizer``, written out in PyTorch over the
+reference's tree layout: ``{"m": tree, "v": tree, "step": int32 scalar}``,
+each moment leaf float32 or, when quantized, ``{"q": int8 (param shape),
+"scale": float32 (per last-dim block)}`` (8-bit Adam, arXiv:2110.02861), so
+optimizer states and checkpoints cross frameworks. Parameters stay in their
+own dtype (bf16) with no float32 master copy, as in the reference. The
+update is functional: new tensors, the inputs untouched.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch import tree as tree_util
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    quantize_states: bool = False   # int8 block-quantized m/v
+    qblock: int = 256
+    warmup_steps: int = 100
+    decay_steps: int = 10000
+
+
+# ------------------------------------------------------- int8 block quant
+def _quantizable(p: torch.Tensor, cfg: AdamWConfig) -> bool:
+    return (cfg.quantize_states and p.dim() >= 1
+            and p.shape[-1] % cfg.qblock == 0 and p.numel() >= 4 * cfg.qblock)
+
+
+def _quant(x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    blocks = x.reshape(x.shape[:-1] + (x.shape[-1] // block, block))
+    scale = torch.amax(torch.abs(blocks), dim=-1) / 127.0
+    q = torch.round(blocks / torch.clamp(scale, min=1e-20)[..., None])
+    return q.reshape(x.shape).to(torch.int8), scale.float()
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor, block: int) -> torch.Tensor:
+    blocks = q.reshape(q.shape[:-1] + (q.shape[-1] // block, block))
+    return (blocks.float() * scale[..., None]).reshape(q.shape)
+
+
+def _is_state(x) -> bool:
+    return isinstance(x, dict) and set(x) == {"q", "scale"}
+
+
+def _state_for(p: torch.Tensor, cfg: AdamWConfig):
+    if _quantizable(p, cfg):
+        return {"q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
+                "scale": torch.zeros(p.shape[:-1] + (p.shape[-1] // cfg.qblock,),
+                                     dtype=torch.float32, device=p.device)}
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _read(state, cfg: AdamWConfig) -> torch.Tensor:
+    if _is_state(state):
+        return _dequant(state["q"], state["scale"], cfg.qblock)
+    return state
+
+
+def _write(val: torch.Tensor, state, cfg: AdamWConfig):
+    if _is_state(state):
+        q, s = _quant(val, cfg.qblock)
+        return {"q": q, "scale": s}
+    return val
+
+
+# ---------------------------------------------------------------- schedule
+def lr_at(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
+    """Linear warmup then cosine decay to 10% of ``cfg.lr``; float32."""
+    s = step.float()
+    warm = torch.clamp(s / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((s - cfg.warmup_steps)
+                       / max(cfg.decay_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (0.1 + 0.9 * cos)
+
+
+# --------------------------------------------------------------- optimizer
+def adamw_init(params, cfg: AdamWConfig) -> dict:
+    device = tree_util.leaves(params)[0].device
+    return {
+        "m": tree_util.tree_map(lambda p: _state_for(p, cfg), params),
+        "v": tree_util.tree_map(lambda p: _state_for(p, cfg), params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_util.leaves(tree)))
+
+
+def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
+    """Returns (new_params, new_opt_state, metrics)."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    lr = lr_at(step, cfg)
+    sf = step.float()
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                     device=sf.device), sf)
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                     device=sf.device), sf)
+
+    def upd(p, g, m_st, v_st):
+        g = g.float() * scale
+        m = cfg.b1 * _read(m_st, cfg) + (1 - cfg.b1) * g
+        v = cfg.b2 * _read(v_st, cfg) + (1 - cfg.b2) * g * g
+        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        u = u + cfg.weight_decay * p.float()
+        new_p = (p.float() - lr * u).to(p.dtype)
+        return new_p, _write(m, m_st, cfg), _write(v, v_st, cfg)
+
+    flat_m = tree_util.leaves(opt_state["m"], is_leaf=_is_state)
+    flat_v = tree_util.leaves(opt_state["v"], is_leaf=_is_state)
+    out = [upd(p, g, m, v) for p, g, m, v in
+           zip(tree_util.leaves(params), tree_util.leaves(grads), flat_m,
+               flat_v)]
+    new_params = tree_util.unflatten(params, [o[0] for o in out])
+    new_m = tree_util.unflatten(opt_state["m"], [o[1] for o in out],
+                                is_leaf=_is_state)
+    new_v = tree_util.unflatten(opt_state["v"], [o[2] for o in out],
+                                is_leaf=_is_state)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return new_params, {"m": new_m, "v": new_v, "step": step}, metrics
+
+
+def opt_state_bytes_per_param(cfg: AdamWConfig) -> float:
+    if cfg.quantize_states:
+        return 2 * (1 + 4.0 / cfg.qblock)
+    return 8.0

@@ -72,3 +72,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bridge.load_params(model, {})
     ServeEngine(model, params, slots=2, window=8, device="cpu")
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The training slice's entry points default to cuda as well, and the
+    scan above covers its modules (``PORT.rglob``)."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.loop import Trainer
+    for mod in ("train/loop.py", "parallel/grad_sync.py",
+                "kernels/allreduce_combine/ops.py", "checkpoint/store.py"):
+        assert PORT / mod in FILES
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get("exanest-lm-100m"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticTokens(cfg, batch=2, seq=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(LM(cfg)).init_state(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--reduced", "--ckpt-dir", str(tmp_path)])

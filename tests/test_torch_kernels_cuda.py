@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.allreduce_combine import kernel as combine_kernel
+from repro_torch.kernels.allreduce_combine.ref import combine_ref
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.flash_decode.ref import decode_attention_ref
 
@@ -50,3 +52,47 @@ def test_flash_decode_matches_plain_on_card(shape, dtype, cuda_device):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+# (P, L): the reference's combine test shapes, the sync's intra reduce of a
+# 5,000,000-element bucket, and an odd L (scalar tail)
+COMBINE_SHAPES = [(4, 1024), (3, 4096), (8, 8192), (2, 2_500_000), (3, 1001)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("shape", COMBINE_SHAPES)
+def test_combine_matches_plain_on_card(shape, op, dtype, cuda_device):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 8)
+    x = x.to(cuda_device, dtype)
+    before = combine_kernel.launches
+    got = combine_kernel.combine(x, op)
+    want = combine_ref(x, op)
+    torch.cuda.synchronize()
+    assert combine_kernel.launches == before + 1
+    # the sum adds parts in the same order in float32 as the plain version,
+    # and max/min pick an input: bit for bit
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_combine_unaligned_view_nan_and_int32_on_card(cuda_device):
+    rng = np.random.default_rng(12)
+    base = torch.from_numpy(rng.standard_normal(2 * 4099 + 1).astype(
+        np.float32)).to(cuda_device)
+    view = base[1:].view(2, 4099)           # rows start 4 bytes off 16
+    assert not combine_kernel.vectorized(view)
+    assert torch.equal(combine_kernel.combine(view, "sum"),
+                       combine_ref(view, "sum"))
+    nan = view.clone()
+    nan[1, 7] = float("nan")
+    for op in ("max", "min"):
+        out = combine_kernel.combine(nan, op)
+        assert torch.isnan(out[7]) and torch.isfinite(out[:7]).all()
+    ints = torch.from_numpy(rng.integers(-(1 << 21), 1 << 21, (8, 4097))
+                            .astype(np.int32)).to(cuda_device)
+    np.testing.assert_array_equal(
+        combine_kernel.combine(ints, "sum").cpu().numpy(),
+        ints.cpu().numpy().sum(0, dtype=np.int64))
