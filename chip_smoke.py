@@ -6,9 +6,9 @@
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
 
 1. env      nvidia-smi's card name and power limit, torch and CUDA versions.
-2. build    builds both kernels from their CUDA sources with nvcc, one nvcc
-            per source, started together (into build/kernels/), and reports
-            the seconds and ptxas' report of each.
+2. build    builds the three kernels from their CUDA sources with nvcc, one
+            nvcc per source, started together (into build/kernels/), and
+            reports the seconds and ptxas' report of each.
 3. kernels  holds flash_decode against its plain PyTorch version on the
             card: the reference package's three test shapes (f32 1e-4, bf16
             2e-2), the serving shape B=8 H=12 K=4 d=64 S=2048 in bf16 and a
@@ -64,6 +64,32 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             top kernels), and the wall time of the step's parts timed alone:
             lm_loss forward+backward, the 12 layers' flash attention
             forward+backward, the AdamW update.
+10. ssd_kernel  full-width mamba2-2.7b (bf16, random weights from
+            torch.Generator seed 0, built by Trainer.init_state), then
+            ssd_scan against its plain version (the sequential recurrence)
+            on the card: the reference package's three test shapes plus one
+            at the layer's head width, f32 (rtol 1e-4, atol 1e-3) and bf16
+            (rtol 6e-2, atol 6e-1); a ragged l=1000 through the model's
+            route (padding to the chunk); and the full-width shape from
+            layer 0's real (x, dt, A, B, C) on the train batch against the
+            port's ssd_chunked in float32 and in the model's bf16 form (see
+            SSD_FULL_TOL); then times kernel and plain version at that
+            shape against the least time the card could take.
+11. ssm_train  Trainer.make_step on that model: batch 2 x seq 4096, 20
+            steps, AdamW lr 6e-4, SyntheticTokens seed 0, no checkpoint.
+            Checks every loss finite, the mean loss of 8 held-out batches
+            falling by SSM_TRAIN's min_drop, and ssd_scan launched 64 x
+            (forward + recompute) times per step; reports ms per step,
+            tokens/s, peak memory.
+12. ssm_train_profile  2 of those steps under torch.profiler: device
+            busy, kernels per step, top kernels, ssd_scan's share.
+13. ssm_decode  prefill of 2 x 1023 tokens (a ragged length, through the
+            kernel), one decode_step of token 1024 from its states, against
+            the last logits of the full 1024-token prefill: in the model's
+            float32 twin on the same weights at 3e-2 (as
+            tests/test_models_smoke.py::test_ssm_decode_matches_prefill),
+            and in bf16 within the bf16 prefill's own distance from the
+            float32 one, plus 3e-2.
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -73,6 +99,7 @@ same lines to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import datetime
 import hashlib
 import json
@@ -96,6 +123,8 @@ TPU_SRC = "src/repro/kernels/flash_decode/kernel.py:55"
 KERNEL_SRC = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 COMBINE_TPU_SRC = "src/repro/kernels/allreduce_combine/kernel.py:33"
 COMBINE_SRC = "src/repro_torch/kernels/allreduce_combine/csrc/combine.cu"
+SSD_TPU_SRC = "src/repro/kernels/ssd_scan/kernel.py:67"
+SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SERVE_SHAPE = dict(B=8, H=12, K=4, dk=64, dv=64, S=2048)
 #: the intra reduce of one 5,000,000-element bucket on a 2-rank intra axis
 COMBINE_TIMING_SHAPE = (2, 2_500_000)
@@ -121,10 +150,32 @@ BUCKET_TOL = {"flat": 1e-5, "hierarchical": 1e-5, "compressed": 1e-6}
 #: another batch split. compressed is only read against it: its int8 codes,
 #: one scale per shard of a bucket, are lossy by design (PERF.md)
 DP_GRAD_TOL = {"plain": 1e-3, "single": 0.1}
+#: the Mamba-2 train phase. The loss gate reads the mean loss of 8 fixed
+#: held-out batches (steps eval_steps, never trained on) before and after
+#: the 20 steps: with 2 sequences per batch one batch's loss moves by up to
+#: 0.5 nats after a few steps, up or down, which hides the fall 20 steps
+#: give at full depth. lr 6e-4: at 3e-4 a held-out batch rose.
+#: min_drop is half the mean drop of the first run at lr 6e-4 (0.139 nats;
+#: every one of the 8 batches fell, by 0.053-0.180; PERF.md section 6).
+SSM_TRAIN = dict(batch=2, seq=4096, steps=20, lr=6e-4, warmup=4,
+                 eval_steps=(10_000, 10_008), min_drop=0.07)
+#: the full-width check, as max|kernel - form| / max|form| over y and over
+#: the final state: against ssd_chunked in float32 (the kernel's own
+#: arithmetic in another order: cumsums, exponentials and sums of up to 256
+#: products, ~1e-6 relative) 1e-3; against the model's bf16 form, which
+#: rounds M, x·dt, B, C, the decays and the entering states to bf16 (2^-9
+#: relative each) before the products the kernel takes in float32, the
+#: reference's bf16 kernel bound 6e-2
+SSD_FULL_TOL = {"float32": 1e-3, "bfloat16": 6e-2}
 LINES: list[dict] = []
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:          # seconds since the start, for the time budget
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     LINES.append(obj)
     print(json.dumps(obj), flush=True)
 
@@ -191,6 +242,9 @@ def ptxas_report(log: str) -> list[str]:
             # ...combine_kernelILi0EfLb1EE...: <op, dtype, vectorized>
             c = re.search(r"combine_kernelILi(\d)E(13__nv_bfloat16|f|i)Lb(\d)E",
                           ln)
+            # ...ssd_output_kernelI13__nv_bfloat16E..., ...ssd_pass_kernel...
+            sd = re.search(r"(ssd_[a-z]+_kernel)(?:I(13__nv_bfloat16|f)E)?",
+                           ln)
             if m:
                 dims = ",".join(re.findall(r"Li(\d+)E", m[3]))
                 entry = f"{m[1]}<{dtypes[m[2]]},{dims}>"
@@ -198,6 +252,8 @@ def ptxas_report(log: str) -> list[str]:
                 op = ("sum", "max", "min")[int(c[1])]
                 entry = (f"combine_kernel<{op},{dtypes[c[2]]},"
                          f"{'vec' if c[3] == '1' else 'scalar'}>")
+            elif sd:
+                entry = sd[1] + (f"<{dtypes[sd[2]]}>" if sd[2] else "")
             else:
                 entry = ln.strip()
         elif "Used" in ln:
@@ -610,6 +666,341 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------- Mamba-2 phases
+def layer_ssd_inputs(model, params, tokens):
+    """Layer 0's (x, dt, A, B, C) on ``tokens``, as mamba2_forward makes
+    them: embedding, ln1, projections, causal convs, softplus."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    cfg = model.cfg
+    s, d_in, nh, _ = ssm._dims(cfg)
+    layer = tree_util.tree_map(lambda t: t[0], params["stack"])
+    with torch.no_grad():
+        h = apply_norm(layer["ln1"], embed_tokens(params["embed"], tokens,
+                                                  cfg), cfg)
+        _, xc, Bc, Cc, dtr, _ = ssm._project(layer["ssm"], h, cfg)
+        Bsz, L = tokens.shape
+        x = xc.reshape(Bsz, L, nh, s.head_dim).contiguous()
+        B = Bc.reshape(Bsz, L, s.n_groups, s.d_state).contiguous()
+        C = Cc.reshape(Bsz, L, s.n_groups, s.d_state).contiguous()
+        dt = ssm._softplus(dtr.float() + layer["ssm"]["dt_bias"]).contiguous()
+        A = (-torch.exp(layer["ssm"]["A_log"])).contiguous()
+    return x, dt, A, B, C
+
+
+def ssd_case(b, l, h, p, n, dtype, seed):
+    """Random SSD inputs on the card, drawn as the reference's test draws
+    them (dt post-softplus, A = -exp(0.3 N))."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.standard_normal((b, l, h, p), np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, l, h), np.float32)))
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(
+        np.float32)) * 0.3)
+    B, C = (torch.from_numpy(rng.standard_normal((b, l, 1, n), np.float32))
+            for _ in range(2))
+    return (x.to(dev, dtype), dt.to(dev), A.to(dev), B.to(dev, dtype),
+            C.to(dev, dtype))
+
+
+def ssd_checks(model, params, tokens) -> tuple[list[dict], tuple]:
+    """ssd_scan against its plain version and the chunked forms on the
+    card; returns the checks and layer 0's inputs (the timing shape)."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.models import ssm
+    results = []
+
+    def fail(msg):
+        emit({"phase": "ssd_kernel", "checks": results})
+        raise AssertionError(msg)
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    # (b, l, h, p, n, chunk): the reference's three test shapes, then the
+    # layer's head width (80 heads of 64, d_state 128, chunk 256)
+    shapes = [(2, 128, 8, 16, 16, 32), (1, 256, 4, 32, 64, 64),
+              (2, 64, 16, 16, 32, 64), (1, 512, 80, 64, 128, 256)]
+    for i, (b, l, h, p, n, chunk) in enumerate(shapes):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 6e-2)):
+            x, dt, A, B, C = ssd_case(b, l, h, p, n, dtype, 80 + i)
+            before = sk.launches
+            y, st = sk.ssd_scan(x, dt, A, B, C, chunk=chunk)
+            y_r, st_r = ssd_ref(x, dt, A, B, C)
+            torch.cuda.synchronize()
+            # the reference's form: |got - want| <= tol |want| + 10 tol
+            excess = max(((y - y_r).abs() - tol * y_r.abs()).max().item(),
+                         ((st - st_r).abs() - tol * st_r.abs()).max().item())
+            err = max((y - y_r).abs().max().item(),
+                      (st - st_r).abs().max().item())
+            ok = (sk.launches == before + 1 and excess <= 10 * tol
+                  and bool(torch.isfinite(y).all().item()))
+            results.append({"case": f"ref-shape-{i}", "shape": [b, l, h, p, n],
+                            "chunk": chunk, "dtype": str(dtype)[6:],
+                            "max_err": err, "excess_over_rtol": excess,
+                            "rtol": tol, "atol": 10 * tol, "ok": ok})
+            if not ok:
+                fail(f"ssd_scan disagrees with ssd_ref at {shapes[i]} "
+                     f"{dtype}: excess {excess} > {10 * tol}")
+    # a ragged length through the model's route: padded to 4 chunks of 256
+    x, dt, A, B, C = ssd_case(1, 1000, 8, 64, 128, torch.float32, 90)
+    before = sk.launches
+    y, st = ssm.ssd(x, dt, A, B, C, 256)
+    y_r, st_r = ssd_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    excess = max(((y - y_r).abs() - 1e-4 * y_r.abs()).max().item(),
+                 ((st - st_r).abs() - 1e-4 * st_r.abs()).max().item())
+    ok = (sk.launches == before + 1 and y.shape == y_r.shape
+          and excess <= 1e-3)
+    results.append({"case": "route-ragged-l1000", "shape": [1, 1000, 8, 64,
+                                                            128],
+                    "chunk": 256, "dtype": "float32",
+                    "max_err": (y - y_r).abs().max().item(),
+                    "excess_over_rtol": excess, "rtol": 1e-4, "atol": 1e-3,
+                    "ok": ok})
+    if not ok:
+        fail(f"the route disagrees at l=1000: excess {excess}")
+    # full width, from layer 0's real inputs on the train batch
+    x, dt, A, B, C = layer_ssd_inputs(model, params, tokens)
+    chunk = model.cfg.ssm.chunk
+    before = sk.launches
+    y, st = ssm.ssd(x, dt, A, B, C, chunk)
+    launched = sk.launches - before
+    forms = {"float32": ssm.ssd_chunked(x.float(), dt, A, B.float(),
+                                        C.float(), chunk),
+             "bfloat16": ssm.ssd_chunked(x, dt, A, B, C, chunk)}
+    torch.cuda.synchronize()
+    for form, (y_c, st_c) in forms.items():
+        err = max(rel(y, y_c), rel(st, st_c))
+        tol = SSD_FULL_TOL[form]
+        ok = launched == 1 and err <= tol
+        results.append({"case": f"layer0-full-width-vs-chunked-{form}",
+                        "shape": list(x.shape) + [B.shape[-1]],
+                        "chunk": chunk, "dtype": str(x.dtype)[6:],
+                        "max_err": (y - y_c).abs().max().item(),
+                        "max_abs_y": y_c.abs().max().item(),
+                        "rel_err_y": rel(y, y_c),
+                        "rel_err_state": rel(st, st_c),
+                        "tol": tol, "ok": ok})
+        if not ok:
+            fail(f"ssd_scan vs ssd_chunked ({form}) at full width: "
+                 f"{err} > {tol}")
+    del forms
+    return results, (x, dt, A, B, C)
+
+
+def ssm_phases(smi: str, acts) -> dict:
+    """Phases 10-13 on full-width mamba2-2.7b; returns ssd_scan's entry of
+    the kernels line."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ops import ssd_cost
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get("mamba2-2.7b")
+    model = build_model(cfg)
+    tr = Trainer(model, AdamWConfig(lr=SSM_TRAIN["lr"],
+                                    warmup_steps=SSM_TRAIN["warmup"],
+                                    decay_steps=SSM_TRAIN["steps"]),
+                 device="cuda")
+    t0 = time.perf_counter()
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticTokens(cfg, batch=SSM_TRAIN["batch"],
+                           seq=SSM_TRAIN["seq"], seed=0, device="cuda")
+
+    # ------------------------------------------------------ 10. ssd_kernel
+    results, (x, dt, A, B, C) = ssd_checks(model, state["params"],
+                                           data.batch_at(0)["tokens"])
+    b, l, h, p = x.shape
+    n, chunk = B.shape[-1], cfg.ssm.chunk
+    other = ssd_case(b, l, h, p, n, x.dtype, 91)
+    sets = [(x, dt, A, B, C), other]      # 2 x ~100 MB of inputs, in turn
+    turn = {"i": 0}
+
+    def nxt():
+        turn["i"] = (turn["i"] + 1) % len(sets)
+        return sets[turn["i"]]
+
+    kernel_ms = time_ms(lambda: sk.ssd_scan(*nxt(), chunk=chunk), reps=8)
+    kernel_eager_ms = time_eager_ms(lambda: sk.ssd_scan(*nxt(), chunk=chunk),
+                                    reps=20)
+    plain_ms = time_ms(lambda: ssd_ref(*nxt()), reps=1, batches=3)
+    nbytes, flops = ssd_cost(b, l, h, p, n, chunk, x.element_size())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    emit({"phase": "ssd_kernel", "arch": cfg.name, "checks": results,
+          "init_state_s": init_s,
+          "timing_shape": {"b": b, "l": l, "h": h, "p": p, "n": n,
+                           "chunk": chunk, "dtype": str(x.dtype)[6:]},
+          "kernel_ms": kernel_ms, "kernel_eager_ms": kernel_eager_ms,
+          "ref_ms": plain_ms, "library_ms": None,
+          "library": "no single PyTorch call computes the SSD scan",
+          "bound_ms": bound_ms, "bound_bytes": nbytes, "bound_flops": flops,
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          "achieved_TFLOPs": flops / (kernel_ms * 1e-3) / 1e12,
+          "ptxas": ptxas_report(_build.build_logs.get("ssd_scan", "")),
+          "card": smi})
+    del sets, other, x, dt, A, B, C
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 11. ssm_train
+    step_fn = tr.make_step()
+    held = [data.batch_at(i) for i in range(*SSM_TRAIN["eval_steps"])]
+
+    def held_loss(params):
+        with torch.no_grad():
+            return [float(model.loss_fn(params, b)) for b in held]
+
+    held_before = held_loss(state["params"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    losses, walls, per_step = [], [], []
+    t_run = time.perf_counter()
+    for i in range(SSM_TRAIN["steps"]):
+        before = sk.launches
+        t = time.perf_counter()
+        state, metrics = step_fn(state, data.batch_at(i))
+        losses.append(float(metrics["loss"]))       # waits for the step
+        walls.append(time.perf_counter() - t)
+        per_step.append(sk.launches - before)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    train_launches = sk.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held_after = held_loss(state["params"])
+    drop = float(np.mean(held_before) - np.mean(held_after))
+    steady_ms = float(np.mean(walls[1:])) * 1e3
+    tokens = SSM_TRAIN["batch"] * SSM_TRAIN["seq"]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    want = 2 * cfg.n_layers
+    emit({"phase": "ssm_train", "arch": cfg.name, "dtype": cfg.dtype,
+          "entry": "Trainer.make_step", **SSM_TRAIN, "losses": losses,
+          "first5_mean": first5, "last5_mean": last5,
+          "held_out_losses_before": held_before,
+          "held_out_losses_after": held_after, "held_out_mean_drop": drop,
+          "threshold": f"held_out_mean_drop >= {SSM_TRAIN['min_drop']}",
+          "wall_s": run_s, "step_wall_ms": [w * 1e3 for w in walls],
+          "ms_per_step_wall": steady_ms,
+          "tok_per_s": tokens / (steady_ms / 1e3), "peak_mem_GB": peak_gb,
+          "ssd_scan_launches": train_launches,
+          "ssd_scan_launches_per_step": per_step,
+          "expected_per_step": f"{cfg.n_layers} layers x (forward + "
+                               f"recompute) = {want}", "card": smi})
+    if any(n_ != want for n_ in per_step):
+        raise AssertionError(f"ssd_scan launched {per_step} times per step; "
+                             f"expected {want}")
+    if not all(np.isfinite(losses + held_before + held_after)):
+        raise AssertionError(f"an ssm train loss is not finite: {losses}, "
+                             f"held-out {held_before} -> {held_after}")
+    if not drop >= SSM_TRAIN["min_drop"]:
+        raise AssertionError(f"the ssm loss did not fall: held-out batches "
+                             f"{held_before} -> {held_after}")
+
+    # ----------------------------------------------- 12. ssm_train_profile
+    n_prof = 2
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            state, metrics = step_fn(state, data.batch_at(100 + i))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernels = device_kernels(prof, n_prof)
+    busy = sum(ms for _, ms, _ in kernels)
+    ssd_ms = sum(ms for name, ms, _ in kernels if "ssd_" in name)
+    wall_ms = prof_wall / n_prof * 1e3
+    emit({"phase": "ssm_train_profile", "steps": n_prof,
+          "ms_per_step_wall_profiled": wall_ms,
+          "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall_ms,
+          "idle_share_vs_unprofiled_wall": 1 - busy / steady_ms,
+          "kernels_per_step": sum(n_ for *_, n_ in kernels),
+          "ssd_scan_ms_per_step": ssd_ms,
+          "ssd_scan_share_of_busy": ssd_ms / busy,
+          "top": [[name[:80], ms, n_] for name, ms, n_ in kernels[:12]],
+          "card": smi})
+    del prof
+
+    # ------------------------------------------------------ 13. ssm_decode
+    # the model in bf16 and its float32 twin on the same weights (bf16
+    # widens to float32 exactly): in float32 the decode must continue the
+    # prefill to the reference's 3e-2. In bf16 the 64 layers' roundings
+    # (GEMMs of 2 x 1023 rows and of 2 rows round differently) move the
+    # logits further than 3e-2, so there the decode's distance from its own
+    # prefill is held to the bf16 prefill's distance from the float32 one,
+    # plus 3e-2: no larger than what bf16 rounding alone does to the
+    # prefill (PERF.md section 6)
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = tree_util.tree_map(lambda t: t.float(), params)
+    toks = data.batch_at(300)["tokens"][:, :1024]
+
+    def decode_vs_prefill(m, p):
+        with torch.no_grad():
+            full, _ = m.prefill(p, {"tokens": toks})
+            _, states = m.prefill(p, {"tokens": toks[:, :1023]})
+            lg, _ = m.decode_step(p, states, {"token": toks[:, 1023],
+                                              "pos": torch.tensor(1023)})
+        return full, lg
+
+    before = sk.launches
+    full16, lg16 = decode_vs_prefill(model, params)
+    full32, lg32 = decode_vs_prefill(model32, params32)
+    torch.cuda.synchronize()
+    prefill_launches = sk.launches - before
+    err32 = (lg32 - full32).abs().max().item()
+    excess32 = ((lg32 - full32).abs() - 3e-2 * full32.abs()).max().item()
+    noise16 = (full16 - full32).abs().max().item()
+    err16 = (lg16 - full16).abs().max().item()
+    ok = (bool(torch.isfinite(lg16).all().item())
+          and bool(torch.isfinite(lg32).all().item())
+          and excess32 <= 3e-2 and err16 <= noise16 + 3e-2
+          and prefill_launches == 4 * cfg.n_layers)
+    emit({"phase": "ssm_decode", "arch": cfg.name, "batch": 2,
+          "prefill_len": 1023, "full_len": 1024,
+          "float32": {"max_abs_err": err32, "excess_over_rtol": excess32,
+                      "rtol": 3e-2, "atol": 3e-2,
+                      "max_abs_logit": full32.abs().max().item()},
+          "bfloat16": {"decode_vs_own_prefill_max_abs": err16,
+                       "decode_vs_own_prefill_mean_abs":
+                           (lg16 - full16).abs().mean().item(),
+                       "prefill_vs_float32_max_abs": noise16,
+                       "decode_vs_float32_max_abs":
+                           (lg16 - full32).abs().max().item(),
+                       "limit": "decode_vs_own_prefill <= "
+                                "prefill_vs_float32 + 3e-2"},
+          "prefill_ssd_launches": prefill_launches, "ok": ok, "card": smi})
+    if not ok:
+        raise AssertionError(f"ssm decode disagrees with the full prefill: "
+                             f"float32 excess {excess32} > 3e-2, or bf16 "
+                             f"{err16} > {noise16} + 3e-2 (launches "
+                             f"{prefill_launches})")
+    del params, params32, full16, full32, lg16, lg32
+    torch.cuda.empty_cache()
+    return {"name": "ssd_scan", "route": "cuda", "source": SSD_SRC,
+            "replaces": SSD_TPU_SRC, "launches": train_launches,
+            "max_abs_err": max(r["max_err"] for r in results
+                               if not r["case"].startswith("layer0")),
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "tol": "reference form: f32 rtol 1e-4 atol "
+                                       "1e-3, bf16 rtol 6e-2 atol 6e-1",
+            "path": "ssm_train",
+            "launches_per_train_step": train_launches / SSM_TRAIN["steps"]}
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -631,6 +1022,7 @@ def main() -> int:
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.flash_decode.ops import decode_attn, hbm_bytes
     from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.launch import train as launch_train
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeEngine
@@ -653,20 +1045,19 @@ def main() -> int:
         mod.build()
         return time.perf_counter() - t
 
+    kmods = (("flash_decode", fd), ("allreduce_combine", ck),
+             ("ssd_scan", sk))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futs = {name: pool.submit(timed_build, mod)
-                for name, mod in (("flash_decode", fd),
-                                  ("allreduce_combine", ck))}
+    with concurrent.futures.ThreadPoolExecutor(len(kmods)) as pool:
+        futs = {name: pool.submit(timed_build, mod) for name, mod in kmods}
         build_s = {name: f.result() for name, f in futs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "seconds_each": build_s,
           "library": {name: str(_build.library_path(name, mod.SOURCES)
                                 .relative_to(ROOT))
-                      for name, mod in (("flash_decode", fd),
-                                        ("allreduce_combine", ck))},
+                      for name, mod in kmods},
           "ptxas": {name: ptxas_report(_build.build_logs.get(name, ""))
-                    for name in ("flash_decode", "allreduce_combine")}})
+                    for name, _ in kmods}})
 
     # --------------------------------------------------------- 3. kernels
     cases = [  # (label, B, H, K, dk, dv, S)
@@ -1022,6 +1413,9 @@ def main() -> int:
     del st, state, p, grads, qkv, h, head, run, model
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 10-13. Mamba-2 phases
+    ssd_entry = ssm_phases(smi, acts)
+
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -1038,7 +1432,8 @@ def main() -> int:
         "bound_ms": c_bound_ms,
         "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
         "library_ms": c_lib_ms, "tol": 1e-2, "path": "dp (rank 0)",
-        "launches_per_synced_step": dp_launches / max(dp_steps, 1)}]})
+        "launches_per_synced_step": dp_launches / max(dp_steps, 1)},
+        ssd_entry]})
     (OUT / "chip_smoke.json").write_text(json.dumps(LINES, indent=1))
     print(smi, flush=True)
     # the card this run used: every phase runs on cuda:0 alone

@@ -11,4 +11,7 @@ tensors the kernel).
 * ``allreduce_combine`` — elementwise sum/max/min of P parts (replaces
   ``repro.kernels.allreduce_combine``; the reduce stages of the
   hierarchical and compressed gradient sync).
+* ``ssd_scan`` — the Mamba-2 SSD chunked dual form (replaces
+  ``repro.kernels.ssd_scan``; every Mamba-2 layer's forward and
+  recompute on the training path).
 """

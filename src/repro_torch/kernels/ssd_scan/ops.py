@@ -1,0 +1,44 @@
+"""SSD scan entry point: the Hopper kernel on CUDA, the plain version on the
+CPU.
+
+Counterpart of ``repro.kernels.ssd_scan.ops``. The device of the tensors
+decides: a CPU tensor goes to :func:`ref.ssd_ref`, a CUDA tensor to the
+kernel, or the call raises. Nothing falls back from the kernel to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 256):
+    """x: (b,l,h,p); dt: (b,l,h) f32; A: (h,) f32; B, C: (b,l,1,n).
+    Returns (y (b,l,h,p) f32, final_state (b,h,p,n) f32)."""
+    if x.device.type == "cpu":
+        return ssd_ref(x, dt, A, B, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd runs on cpu or cuda, not {x.device}")
+    return ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+
+def ssd_cost(b: int, l: int, h: int, p: int, n: int, chunk: int,
+             in_bytes: int) -> tuple[int, int]:
+    """(bytes, flops) the SSD scan needs at least: x, B and C read once in
+    their dtype (``in_bytes`` each element), dt read once in f32, y and the
+    final state written once in f32; the products of the chunked dual form
+    with the causal mask applied (C·Bᵀ and M·x over the pairs i >= j of each
+    chunk, the chunk states, the entering-state term), 2 per multiply-add.
+    Exponentials are not counted."""
+    nc = l // chunk
+    pairs = chunk * (chunk + 1) // 2
+    nbytes = (b * l * h * p * in_bytes + b * l * h * 4 + h * 4
+              + 2 * b * l * n * in_bytes + b * l * h * p * 4
+              + b * h * p * n * 4)
+    flops = (b * nc * pairs * n * 2            # C·Bᵀ, shared by the heads
+             + b * nc * h * pairs * p * 2      # M·(x·dt)
+             + 2 * b * nc * h * chunk * p * n * 2)   # states, y_off
+    return nbytes, flops

@@ -1,3 +1,3 @@
-from repro_torch.models.transformer import LM, build_model
+from repro_torch.models.transformer import LM, SSMLM, build_model
 
-__all__ = ["LM", "build_model"]
+__all__ = ["LM", "SSMLM", "build_model"]

@@ -1,7 +1,8 @@
 """Core layers: norms, RoPE, MLPs, embeddings — functions over dicts of tensors.
 
-Counterpart of ``repro.models.layers``: the decode path's share of it and,
-for training, ``softmax_xent`` and the chunked ``lm_loss``.
+Counterpart of ``repro.models.layers``: the decode path's share of it,
+for training ``softmax_xent`` and the chunked ``lm_loss``, and Mamba-2's
+``rmsnorm_gated``.
 Parameters are nested dicts of tensors; init functions mirror apply
 functions. Weights are drawn from an explicit CPU ``torch.Generator`` in
 float32 and then moved, so one seed gives the same weights on every device.
@@ -54,6 +55,16 @@ def apply_norm(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def rmsnorm_gated(scale: torch.Tensor, x: torch.Tensor,
+                  gate: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 gated RMSNorm: norm(x * silu(gate)) * scale, with the
+    reference's casts: the gate's silu in float32, rounded to x's dtype,
+    the product widened to float32 for the norm."""
+    xf = (x * silu(gate.float()).to(x.dtype)).float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
+
+
 # ----------------------------------------------------------------------- RoPE
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -89,13 +100,19 @@ def init_mlp(gen, cfg: ArchConfig, d: int, ff: int, device) -> dict:
     return p
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as jax.nn writes it: ``x * (1 / (1 + exp(-x)))``,
+    rounding in x's dtype at each op."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` / ``jax.nn.gelu`` (tanh form) written out op by op as
     jax.nn writes them, so a bf16 model rounds where the reference rounds
     (``F.silu``/``F.gelu`` round once and differ from it by an ulp on ~40%
     of bf16 elements)."""
     if cfg.mlp_act == "silu":
-        return x * (1 / (1 + torch.exp(-x)))
+        return silu(x)
     c = torch.tensor((2 / torch.pi) ** 0.5, dtype=x.dtype)
     return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3)))))
 

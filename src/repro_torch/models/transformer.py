@@ -1,12 +1,14 @@
-"""Decoder-only dense LM: training (``loss_fn``), prefill and decode.
+"""Decoder-only dense LM and the Mamba-2 LM: training (``loss_fn``),
+prefill and decode.
 
-Counterpart of the dense branches of ``repro.models.transformer``. The
-parameter tree keeps the reference's layout, with every block parameter
-stacked on a leading layer axis (``dense_stack.attn.wq`` is (L, d, H, hd)),
-so JAX parameters transfer one to one by tree path (see
-:mod:`repro_torch.bridge`). The reference's ``lax.scan`` over layers is a
-Python loop over that leading axis; on the full-sequence path each layer
-runs under ``torch.utils.checkpoint``, as the reference remats its block.
+Counterpart of the dense and SSM branches of ``repro.models.transformer``.
+The parameter tree keeps the reference's layout, with every block parameter
+stacked on a leading layer axis (``dense_stack.attn.wq`` is (L, d, H, hd),
+``stack.ssm.wx`` is (L, d, d_inner)), so JAX parameters transfer one to one
+by tree path (see :mod:`repro_torch.bridge`). The reference's ``lax.scan``
+over layers is a Python loop over that leading axis; on the full-sequence
+path each layer runs under ``torch.utils.checkpoint``, as the reference
+remats its block.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch import tree as tree_util
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
                                        embed_tokens, init_embedding, init_mlp,
                                        init_norm, lm_loss, logits)
@@ -28,8 +31,9 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
 def _unported(cfg: ArchConfig) -> str | None:
     """Why ``cfg`` cannot run on the port yet (and which ROADMAP item ports
     it), or None when its decode path is ported."""
-    if cfg.family in ("ssm", "hybrid") or cfg.ssm is not None:
-        return "Mamba-2 / hybrid stacks (ROADMAP.md queue 1 item 4)"
+    if cfg.family == "hybrid" or cfg.hybrid_attn_every:
+        return ("hybrid Mamba-2 stacks with a shared attention block "
+                "(ROADMAP.md queue 1 item 4)")
     if cfg.family == "audio" or cfg.encdec is not None:
         return "encoder-decoder models (ROADMAP.md queue 1 item 5)"
     if cfg.family == "vlm" or cfg.vision is not None:
@@ -43,9 +47,12 @@ def _unported(cfg: ArchConfig) -> str | None:
 
 # ------------------------------------------------------------------ blocks
 def init_block(gen, cfg: ArchConfig, kind: str, device) -> dict:
+    d = cfg.d_model
+    if kind == "ssm":
+        return {"ln1": init_norm(cfg, d, device),
+                "ssm": ssm_lib.init_mamba2(gen, cfg, device)}
     if kind != "dense":
         raise NotImplementedError(f"block kind {kind!r} is not ported")
-    d = cfg.d_model
     return {
         "ln1": init_norm(cfg, d, device),
         "attn": attn.init_gqa(gen, cfg, d, device),
@@ -59,8 +66,12 @@ def _ffn(p, h, cfg, kind):
 
 
 def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions):
-    """Full-sequence causal block. Returns (x, cache)."""
+    """Full-sequence causal block. Returns (x, cache); for ``kind="ssm"``
+    the cache is the Mamba-2 state ``{"conv", "ssm"}``."""
     h = apply_norm(p["ln1"], x, cfg)
+    if kind == "ssm":
+        y, state = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
+        return x + y, state
     y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
@@ -69,6 +80,9 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions):
 
 def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos):
     h = apply_norm(p["ln1"], x, cfg)
+    if kind == "ssm":
+        y, state = ssm_lib.mamba2_decode(p["ssm"], h, cfg, cache)
+        return x + y, state
     y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
@@ -89,11 +103,20 @@ def init_stack(gen, cfg: ArchConfig, kind: str, n: int, device):
     return gather(blocks)
 
 
+def _stack_trees(trees: list):
+    """One tree whose leaves stack the corresponding leaves of ``trees``
+    on a new leading axis (the reference scan's stacked outputs)."""
+    cols = zip(*[tree_util.leaves(t) for t in trees])
+    return tree_util.unflatten(trees[0], [torch.stack(c) for c in cols])
+
+
 def stack_forward(stack, x, cfg, kind, *, positions):
     """Run the stacked blocks layer by layer, each recomputed in backward;
-    returns (x, caches) with caches k/v stacked as (L, B, S, K, hd)."""
+    returns (x, caches), each cache leaf stacked on a leading layer axis:
+    k/v (L, B, S, K, hd) for attention; for ``kind="ssm"`` the states
+    ``{"conv": (sx, sB, sC) each (L, B, W-1, C), "ssm": (L, B, h, p, n)}``."""
     n = stack["ln1"]["scale"].shape[0]
-    ks, vs = [], []
+    caches = []
     for i in range(n):
         layer_p = tree_util.tree_map(lambda t: t[i], stack)
 
@@ -105,19 +128,25 @@ def stack_forward(stack, x, cfg, kind, *, positions):
             x, cache = checkpoint(body, x, use_reentrant=False)
         else:
             x, cache = body(x)
-        ks.append(cache["k"])
-        vs.append(cache["v"])
-    return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        caches.append(cache)
+    return x, _stack_trees(caches)
 
 
 def stack_decode(stack, x, cfg, kind, *, caches, pos):
-    """Run the stacked blocks layer by layer. ``caches`` k/v are (L,B,S,K,hd);
-    layer i writes its new KV into ``caches[...][i]`` IN PLACE (the
-    reference's scan returns new caches instead)."""
-    for i in range(caches["k"].shape[0]):
+    """Run the stacked blocks layer by layer over ``caches`` (leaves with a
+    leading layer axis), updated IN PLACE (the reference's scan returns new
+    caches instead): attention layers write their new KV into
+    ``caches[...][i]``; SSM layers' new conv and SSM states are copied into
+    layer i's slice."""
+    n = stack["ln1"]["scale"].shape[0]
+    for i in range(n):
         layer_p = tree_util.tree_map(lambda t: t[i], stack)
-        x, _ = block_decode(layer_p, x, cfg, kind, pos=pos,
-                            cache={"k": caches["k"][i], "v": caches["v"][i]})
+        cache = tree_util.tree_map(lambda t: t[i], caches)
+        x, new = block_decode(layer_p, x, cfg, kind, pos=pos, cache=cache)
+        if kind == "ssm":
+            for dst, src in zip(tree_util.leaves(cache),
+                                tree_util.leaves(new)):
+                dst.copy_(src)
     return x, caches
 
 
@@ -133,6 +162,9 @@ class LM:
         if why is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: {why} not ported to repro_torch yet")
+        if self.cfg.ssm is not None:
+            raise ValueError(f"{self.cfg.name} is a Mamba-2 config: build it "
+                             "with SSMLM (or build_model)")
 
     def init(self, gen: torch.Generator, device=None) -> dict:
         """Random parameters drawn from ``gen`` (a CPU generator), on
@@ -208,7 +240,88 @@ class LM:
                           "v": torch.zeros(shape, dtype=dt, device=device)}}
 
 
-def build_model(cfg: ArchConfig) -> LM:
-    """The port's model for ``cfg``; raises ``NotImplementedError`` for the
-    families not ported yet, naming the ROADMAP item that ports each."""
+# ------------------------------------------------------------------ SSM model
+@dataclasses.dataclass(frozen=True)
+class SSMLM:
+    """Mamba-2 LM (attention-free): ``init``, ``loss_fn``, ``prefill``,
+    ``init_cache`` and ``decode_step``."""
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        why = _unported(self.cfg)
+        if why is not None or self.cfg.ssm is None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {why or 'not a Mamba-2 config'}; not "
+                "ported to repro_torch yet")
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        """Random parameters drawn from ``gen`` (a CPU generator), on
+        ``device`` (default cuda; ``"meta"`` gives shapes only)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        return {
+            "embed": init_embedding(gen, cfg, device),
+            "stack": init_stack(gen, cfg, "ssm", cfg.n_layers, device),
+            "final_norm": init_norm(cfg, cfg.d_model, device),
+        }
+
+    def _trunk(self, params: dict, tokens):
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens, cfg)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x, states = stack_forward(params["stack"], x, cfg, "ssm",
+                                  positions=positions)
+        return apply_norm(params["final_norm"], x, cfg), states
+
+    def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
+        """Mean next-token cross entropy of ``batch`` (``tokens``,
+        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`."""
+        h, _ = self._trunk(params, batch["tokens"])
+        return lm_loss(params["embed"], h[:, :-1], batch["labels"][:, 1:],
+                       self.cfg)
+
+    def prefill(self, params: dict, batch: dict, pctx=None):
+        """Logits of the last position (B, 1, V) float32 and the states
+        ``{"conv": (sx, sB, sC) each (L, B, W-1, C), "ssm": (L, B, h, p,
+        n) float32}`` to continue from."""
+        h, states = self._trunk(params, batch["tokens"])
+        return logits(params["embed"], h[:, -1:, :], self.cfg), states
+
+    def decode_step(self, params: dict, states: dict, batch: dict):
+        """One token per row. ``batch``: ``token`` (B,) and ``pos`` (unused
+        by the recurrence; kept for the engine's signature). Returns
+        (logits (B,1,V) float32, states), the states updated in place."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], batch["token"][:, None], cfg)
+        x, _ = stack_decode(params["stack"], x, cfg, "ssm", caches=states,
+                            pos=batch["pos"])
+        h = apply_norm(params["final_norm"], x, cfg)
+        return logits(params["embed"], h, cfg), states
+
+    def init_cache(self, batch_size: int, seq_len: int, device=None) -> dict:
+        """Zero states for ``batch_size`` rows (``seq_len`` is unused: the
+        state does not grow with the sequence)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        s, d_in, nh, conv_ch = ssm_lib._dims(cfg)
+        gn = s.n_groups * s.d_state
+        L, W, dt = cfg.n_layers, s.d_conv - 1, dtype_of(cfg)
+
+        def zeros(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return {"conv": (zeros(L, batch_size, W, d_in),
+                         zeros(L, batch_size, W, gn),
+                         zeros(L, batch_size, W, gn)),
+                "ssm": zeros(L, batch_size, nh, s.head_dim, s.d_state,
+                             dtype=torch.float32)}
+
+
+def build_model(cfg: ArchConfig):
+    """The port's model for ``cfg``: :class:`SSMLM` for the ``ssm`` family,
+    :class:`LM` otherwise; raises ``NotImplementedError`` for the families
+    not ported yet, naming the ROADMAP item that ports each."""
+    if cfg.family == "ssm":
+        return SSMLM(cfg)
     return LM(cfg)

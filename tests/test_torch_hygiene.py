@@ -91,3 +91,26 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         Trainer(LM(cfg)).init_state(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--reduced", "--ckpt-dir", str(tmp_path)])
+
+
+def test_ssm_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The Mamba-2 slice's entry points (SSMLM's init, its states, its
+    training through Trainer and the launcher) default to cuda too."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import SSMLM
+    from repro_torch.train.loop import Trainer
+    for mod in ("models/ssm.py", "kernels/ssd_scan/ops.py",
+                "kernels/ssd_scan/kernel.py"):
+        assert PORT / mod in FILES
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = SSMLM(reduced(get("mamba2-2.7b")))
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model).init_state(gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "mamba2-2.7b", "--reduced",
+                           "--ckpt-dir", str(tmp_path)])

@@ -16,6 +16,8 @@ from repro_torch.kernels.allreduce_combine import kernel as combine_kernel
 from repro_torch.kernels.allreduce_combine.ref import combine_ref
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 # (B, H, K, dk, dv, S): the reference's kernel test shapes, then the serving
 # shape of exanest-lm-100m at a window S that is no multiple of a pass
@@ -96,3 +98,37 @@ def test_combine_unaligned_view_nan_and_int32_on_card(cuda_device):
     np.testing.assert_array_equal(
         combine_kernel.combine(ints, "sum").cpu().numpy(),
         ints.cpu().numpy().sum(0, dtype=np.int64))
+
+
+# (b, l, h, p, n, chunk): the reference's ssd_scan test shapes, then a
+# slice of mamba2-2.7b's layer (80 heads of 64, d_state 128, chunk 256)
+SSD_SHAPES = [(2, 128, 8, 16, 16, 32), (1, 256, 4, 32, 64, 64),
+              (2, 64, 16, 16, 32, 64), (1, 512, 80, 64, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_scan_matches_plain_on_card(shape, dtype, cuda_device):
+    b, l, h, p, n, chunk = shape
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((b, l, h, p), np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, l, h), np.float32)))
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(
+        np.float32)) * 0.3)
+    B, C = (torch.from_numpy(rng.standard_normal((b, l, 1, n), np.float32))
+            for _ in range(2))
+    x, B, C = (t.to(cuda_device, dtype) for t in (x, B, C))
+    dt, A = dt.to(cuda_device), A.to(cuda_device)
+    before = ssd_kernel.launches
+    y, st = ssd_kernel.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    y_r, st_r = ssd_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 1
+    # the reference's kernel tolerances (tests/test_kernels.py): f32
+    # summation order; bf16 inputs
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    for got, want in ((y, y_r), (st, st_r)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=tol, atol=tol * 10)
