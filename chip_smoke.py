@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
 
 1. env      nvidia-smi's card name and power limit, torch and CUDA versions.
-2. build    builds the three kernels from their CUDA sources with nvcc, one
+2. build    builds the four kernels from their CUDA sources with nvcc, one
             nvcc per source, started together (into build/kernels/), and
             reports the seconds and ptxas' report of each.
 3. kernels  holds flash_decode against its plain PyTorch version on the
@@ -24,17 +24,33 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             one part (max/min must give NaN) and int32 sums (exact); then
             times kernel, plain version and torch.sum(x, 0, dtype=float32)
             (a yardstick the port never calls) at (2, 2,500,000) f32.
-5. serve    full-width exanest-lm-100m in bf16 with random weights from
+5. matmul   holds matmul_tile (the paper's section 7 MatMul accelerator)
+            against its plain version through repro_torch.kernels.matmul,
+            TF32 off: the reference's four test shapes (bk 128) in f32,
+            bf16 and f16 and three shapes its tile contract takes that no
+            128-wide tile divides; the exact K=2048 sweep of ones; the five
+            exanest-lm-100m projections at 4096 tokens (bk 256), f32 and
+            bf16, at the reference's tolerances (f32 rtol 1e-3 atol 8e-3,
+            bf16/f16 2e-2 / 0.16); that the shapes the contract refuses
+            raise before any launch. Prints matmul_accel_rows for the H100
+            (roofline/paper.py), then runs the section 7 path: 1024^3,
+            4096^3 and 8192^3 in bf16 and f32 through the entry point, the
+            launch counter read around them, each held against the plain
+            version; then times kernel, plain version and torch.matmul (a
+            yardstick the port never calls) at those shapes beside the
+            bound, TFLOP/s, the share of the peak and GFLOP/s per W of the
+            power limit.
+6. serve    full-width exanest-lm-100m in bf16 with random weights from
             torch.Generator seed 0, ServeEngine(slots=8, window=2048), 16
             requests with prompt lengths 64-1024 (numpy seed 0) and 32 new
             tokens each. Checks 16/16 done with every token in the
             vocabulary, that flash_decode launched once per layer per
             decode_step, and the kernel against the plain version on the
             engine's own layer-0 cache taken mid-run.
-6. profile  8 of the engine's decode_step calls under torch.profiler:
+7. profile  8 of the engine's decode_step calls under torch.profiler:
             device time per step by kernel and the device's idle share (the
             trace goes to chiprun_out/decode_step_trace.json).
-7. dp       data-parallel training on this one card: four processes
+8. dp       data-parallel training on this one card: four processes
             (torch.multiprocessing, spawn) form a 2x2 mesh (pod=2 inter,
             data=2 intra) over a gloo group (NCCL refuses two ranks on one
             GPU), all on cuda:0; gloo moves CUDA tensors through host
@@ -54,17 +70,17 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             single-process step at global batch 8 (DP_GRAD_TOL); that
             step's loss and parameters against the first hierarchical
             step's to 2e-2.
-8. train    repro_torch.launch.train.main on full-width exanest-lm-100m in
+9. train    repro_torch.launch.train.main on full-width exanest-lm-100m in
             bf16: batch 8, seq 512, 30 steps, run_with_recovery with its
             step-0 checkpoint (under chiprun_out/, checked, then deleted).
             lr 1e-3. Checks every loss finite and the loss falling (the
             mean of the last 5 at least 0.2 nats under the mean of the
             first 5); reports ms per step, tokens/s, peak memory.
-9. train_profile  3 train steps under torch.profiler (device busy vs wall,
+10. train_profile  3 train steps under torch.profiler (device busy vs wall,
             top kernels), and the wall time of the step's parts timed alone:
             lm_loss forward+backward, the 12 layers' flash attention
             forward+backward, the AdamW update.
-10. ssd_kernel  full-width mamba2-2.7b (bf16, random weights from
+11. ssd_kernel  full-width mamba2-2.7b (bf16, random weights from
             torch.Generator seed 0, built by Trainer.init_state), then
             ssd_scan against its plain version (the sequential recurrence)
             on the card: the reference package's three test shapes plus one
@@ -75,15 +91,15 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             port's ssd_chunked in float32 and in the model's bf16 form (see
             SSD_FULL_TOL); then times kernel and plain version at that
             shape against the least time the card could take.
-11. ssm_train  Trainer.make_step on that model: batch 2 x seq 4096, 20
+12. ssm_train  Trainer.make_step on that model: batch 2 x seq 4096, 20
             steps, AdamW lr 6e-4, SyntheticTokens seed 0, no checkpoint.
             Checks every loss finite, the mean loss of 8 held-out batches
             falling by SSM_TRAIN's min_drop, and ssd_scan launched 64 x
             (forward + recompute) times per step; reports ms per step,
             tokens/s, peak memory.
-12. ssm_train_profile  2 of those steps under torch.profiler: device
+13. ssm_train_profile  2 of those steps under torch.profiler: device
             busy, kernels per step, top kernels, ssd_scan's share.
-13. ssm_decode  prefill of 2 x 1023 tokens (a ragged length, through the
+14. ssm_decode  prefill of 2 x 1023 tokens (a ragged length, through the
             kernel), one decode_step of token 1024 from its states, against
             the last logits of the full 1024-token prefill: in the model's
             float32 twin on the same weights at 3e-2 (as
@@ -101,6 +117,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import datetime
+import functools
 import hashlib
 import json
 import re
@@ -117,14 +134,32 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TPU_SRC = "src/repro/kernels/flash_decode/kernel.py:55"
 KERNEL_SRC = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 COMBINE_TPU_SRC = "src/repro/kernels/allreduce_combine/kernel.py:33"
 COMBINE_SRC = "src/repro_torch/kernels/allreduce_combine/csrc/combine.cu"
 SSD_TPU_SRC = "src/repro/kernels/ssd_scan/kernel.py:67"
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+MM_TPU_SRC = "src/repro/kernels/matmul_tile/kernel.py:40"
+MM_SRC = "src/repro_torch/kernels/matmul_tile/csrc/matmul_tile.cu"
+#: the reference's matmul test shapes (M, N, K), checked with bk 128
+MM_TEST_SHAPES = ((128, 128, 128), (256, 128, 512), (384, 256, 256),
+                  (128, 384, 640))
+#: exanest-lm-100m's projections at 8 x 512 tokens: (name, N, K), bk 256
+#: (the default bk 512 does not divide K = 768)
+MM_PROJ_M = 8 * 512
+MM_PROJ = (("q/out", 768, 768), ("k/v", 256, 768), ("gate/up", 2048, 768),
+           ("down", 768, 2048), ("logits", 32000, 768))
+#: shapes the reference's contract takes that no 128-wide tile divides
+#: (M, N, K): depth 301 (element-wise loads in every dtype), 100 cubed
+#: (16-byte vectors in f32 only), N = 100
+MM_EDGE_SHAPES = ((128, 128, 301), (100, 100, 100), (256, 100, 512))
+#: the reference's kernel tolerances (tests/test_kernels.py), (rtol, atol):
+#: |kernel - plain| <= atol + rtol |plain|
+MM_TOL = {torch.float32: (1e-3, 8e-3), torch.bfloat16: (2e-2, 0.16),
+          torch.float16: (2e-2, 0.16)}
+#: the section 7 timings: the headline entry of the kernels line
+MM_HEADLINE = ((4096, 4096, 4096), torch.bfloat16)
 SERVE_SHAPE = dict(B=8, H=12, K=4, dk=64, dv=64, S=2048)
 #: the intra reduce of one 5,000,000-element bucket on a 2-rank intra axis
 COMBINE_TIMING_SHAPE = (2, 2_500_000)
@@ -187,12 +222,20 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+@functools.cache
+def warmup_stream() -> torch.cuda.Stream:
+    """One side stream for every warm-up: cuBLAS keeps a workspace for each
+    stream it has run on, and a new stream per timing would leave one
+    allocated per timed library call for the rest of the run."""
+    return torch.cuda.Stream()
+
+
 def time_ms(fn, reps: int = 48, batches: int = 7) -> float:
     """Device time of one ``fn()`` call: ``reps`` calls captured in a CUDA
     graph, replayed ``batches`` times between CUDA events; the median replay
     over ``reps``. A graph replay has no host work between launches, so this
     is the time on the card, not the Python wrapper's."""
-    side = torch.cuda.Stream()
+    side = warmup_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -214,6 +257,33 @@ def time_ms(fn, reps: int = 48, batches: int = 7) -> float:
         end.synchronize()
         out.append(start.elapsed_time(end) / reps)
     return statistics.median(out)
+
+
+def time_auto_ms(fn, target_ms: float = 30.0) -> float:
+    """:func:`time_ms` with as many calls per graph as fill about
+    ``target_ms`` (1 to 48), from one eager call timed first."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    once = start.elapsed_time(end)
+    return time_ms(fn, reps=max(1, min(48, int(target_ms / max(once, 1e-3)))))
+
+
+def card_peaks() -> tuple[float, float, float]:
+    """(device-memory bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s) of
+    the card, from the port's roofline/hw.py (NVIDIA's H100 SXM figures)."""
+    from repro_torch.roofline.hw import H100, H100_PEAK_F32_FLOPS
+    return H100.hbm_bw, H100.peak_bf16_flops, H100_PEAK_F32_FLOPS
+
+
+def power_limit_w(smi: str) -> float | None:
+    """The power limit in W from nvidia-smi's "name, limit" line."""
+    m = re.search(r"([\d.]+)\s*W\s*$", smi)
+    return float(m[1]) if m else None
 
 
 def time_eager_ms(fn, reps: int = 200) -> float:
@@ -245,6 +315,9 @@ def ptxas_report(log: str) -> list[str]:
             # ...ssd_output_kernelI13__nv_bfloat16E..., ...ssd_pass_kernel...
             sd = re.search(r"(ssd_[a-z]+_kernel)(?:I(13__nv_bfloat16|f)E)?",
                            ln)
+            # ...mm16_kernelI13__nv_bfloat16Lb1EE..., ...mm32_kernelILb0EE...
+            mm = re.search(r"(mm16_kernel|mm32_kernel)I(13__nv_bfloat16|6__half)?"
+                           r"Lb(\d)E", ln)
             if m:
                 dims = ",".join(re.findall(r"Li(\d+)E", m[3]))
                 entry = f"{m[1]}<{dtypes[m[2]]},{dims}>"
@@ -254,6 +327,11 @@ def ptxas_report(log: str) -> list[str]:
                          f"{'vec' if c[3] == '1' else 'scalar'}>")
             elif sd:
                 entry = sd[1] + (f"<{dtypes[sd[2]]}>" if sd[2] else "")
+            elif mm:
+                kind = {"13__nv_bfloat16": "bf16,", "6__half": "f16,",
+                        None: ""}[mm[2]]
+                entry = (f"{mm[1]}<{kind}"
+                         f"{'vec' if mm[3] == '1' else 'scalar'}>")
             else:
                 entry = ln.strip()
         elif "Used" in ln:
@@ -389,6 +467,168 @@ def combine_checks() -> list[dict]:
     if not np.array_equal(combine_parts(big, op="sum").cpu().numpy(), want):
         raise AssertionError("int32 combine sum is not the exact integer sum")
     return results
+
+
+# ------------------------------------------------------------- matmul phase
+def matmul_phase(smi: str) -> tuple[list[dict], dict]:
+    """Phase 5: matmul_tile against its plain version, the section 7 path
+    through the public entry point, and its timings. Returns the lines to
+    emit and the kernel's entry of the kernels line."""
+    from repro_torch.kernels import matmul
+    from repro_torch.kernels.matmul_tile import kernel as mk
+    from repro_torch.kernels.matmul_tile.ref import matmul_ref
+    from repro_torch.roofline.hw import H100
+    from repro_torch.roofline.paper import SHAPES, matmul_accel_rows
+    dev = torch.device("cuda")
+    hbm, bf16_peak, f32_peak = card_peaks()
+    gen = torch.Generator("cuda").manual_seed(100)
+    results = []
+
+    def inputs(M, N, K, dtype):
+        return (torch.randn((M, K), device=dev, generator=gen).to(dtype),
+                torch.randn((K, N), device=dev, generator=gen).to(dtype))
+
+    def compare(label, a, b, got, exact=None):
+        rtol, atol = MM_TOL[a.dtype]
+        want = matmul_ref(a, b).float()
+        diff = (got.float() - want).abs()
+        excess = (diff - rtol * want.abs()).max().item()
+        err = diff.max().item()
+        ok = (got.dtype == a.dtype and got.shape == want.shape
+              and bool(torch.isfinite(got).all().item()) and excess <= atol
+              and (exact is None or bool((got.float() == exact).all().item())))
+        results.append({"case": label, "dtype": str(a.dtype)[6:],
+                        "mnk": [a.shape[0], b.shape[1], a.shape[1]],
+                        "vectorized": mk.vectorized(a, b, got),
+                        "max_err": err, "excess_over_rtol": excess,
+                        "rtol": rtol, "atol": atol, "ok": ok})
+        if not ok:
+            emit({"phase": "matmul", "checks": results})
+            raise AssertionError(f"matmul_tile disagrees on {label} "
+                                 f"{a.dtype}: excess {excess} > {atol}")
+
+    def check(label, a, b, bk, exact=None):
+        before = mk.launches
+        got = matmul(a, b, bk=bk)
+        torch.cuda.synchronize()
+        if mk.launches != before + 1:
+            raise AssertionError(f"matmul {label}: no kernel launch")
+        compare(label, a, b, got, exact)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for M, N, K in MM_TEST_SHAPES:
+            check(f"jax-test-{M}x{N}x{K}", *inputs(M, N, K, dtype), 128)
+        for M, N, K in MM_EDGE_SHAPES:
+            check(f"edge-{M}x{N}x{K}", *inputs(M, N, K, dtype), 512)
+    for dtype in (torch.float32, torch.bfloat16):
+        ones = (torch.ones((128, 2048), device=dev, dtype=dtype),
+                torch.ones((2048, 128), device=dev, dtype=dtype))
+        check("ones-K2048", *ones, 256, exact=2048.0)
+        for name, N, K in MM_PROJ:
+            check(f"exanest-lm-100m-{name}", *inputs(MM_PROJ_M, N, K, dtype),
+                  256)
+    # what the contract refuses raises on the card too, before any launch
+    refused = {}
+    z = torch.zeros((MM_PROJ_M, 2560), device=dev, dtype=torch.bfloat16)
+    for label, a, b in (
+            ("K=768, default bk 512", z[:, :768], torch.zeros(
+                (768, 768), device=dev, dtype=torch.bfloat16)),
+            ("N=10576 (mamba2 in_proj), default bn 128", z, torch.zeros(
+                (2560, 10576), device=dev, dtype=torch.bfloat16)),
+            ("K mismatch", z, torch.zeros((768, 768), device=dev,
+                                          dtype=torch.bfloat16))):
+        before = mk.launches
+        try:
+            matmul(a.contiguous(), b)
+        except ValueError as exc:
+            refused[label] = str(exc)
+        else:
+            raise AssertionError(f"matmul took {label}")
+        if mk.launches != before:
+            raise AssertionError(f"matmul launched on {label}")
+    del z
+
+    # the section 7 path: the evaluation's products through the public
+    # entry point, the counter read just around them; each result is then
+    # held against the plain version (which launches nothing)
+    rows = matmul_accel_rows(H100)
+    torch.cuda.synchronize()
+    mk.launches = 0
+    path = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for M, N, K in SHAPES:
+            a, b = inputs(M, N, K, dtype)
+            before = mk.launches
+            c = matmul(a, b)
+            torch.cuda.synchronize()
+            path.append((M, N, K, dtype, mk.launches - before))
+            compare(f"section7-{M}^3", a, b, c)
+            del a, b, c
+    launches = mk.launches
+    if launches != len(path) or any(n != 1 for *_, n in path):
+        raise AssertionError(f"the section 7 path launched matmul_tile "
+                             f"{[n for *_, n in path]} times")
+
+    # timings at the section 7 shapes: kernel, plain version, torch.matmul
+    limit_w = power_limit_w(smi)
+    timings = []
+    for dtype in (torch.bfloat16, torch.float32):
+        peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
+        for M, N, K in SHAPES:
+            a, b = inputs(M, N, K, dtype)
+            flops = 2 * M * N * K
+            nbytes = a.element_size() * (M * K + K * N + M * N)
+            kernel_ms = time_auto_ms(lambda: matmul(a, b))
+            plain_ms = time_auto_ms(lambda: matmul_ref(a, b))
+            library_ms = time_auto_ms(lambda: torch.matmul(a, b))
+            bytes_ms, ops_ms = nbytes / hbm * 1e3, flops / peak * 1e3
+            gflops = flops / (kernel_ms * 1e-3) / 1e9
+            timings.append({
+                "mnk": [M, N, K], "dtype": str(dtype)[6:],
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "library": "torch.matmul(a, b), TF32 off",
+                "bound_ms": max(bytes_ms, ops_ms), "bound_bytes": nbytes,
+                "bound_flops": flops,
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "peak_flops": peak, "TFLOPs": gflops / 1e3,
+                "share_of_peak": gflops * 1e9 / peak,
+                "library_TFLOPs": flops / (library_ms * 1e-3) / 1e12,
+                "kernel_over_library": kernel_ms / library_ms,
+                "GFLOPs_per_W_of_power_limit":
+                    None if limit_w is None else gflops / limit_w})
+            del a, b
+    torch.cuda.empty_cache()
+    from repro_torch.core.exanet.params import DEFAULT
+    lines = [
+        {"phase": "matmul_accel_rows", "spec": H100.name,
+         "rows": [list(r) for r in rows]},
+        {"phase": "matmul", "checks": results, "refused": refused,
+         "section7_path": {"entry": "repro_torch.kernels.matmul",
+                           "launches": launches,
+                           "calls": [[M, N, K, str(d)[6:], n]
+                                     for M, N, K, d, n in path]},
+         "timings": timings, "power_limit_W": limit_w,
+         "paper_fpga": {"GFLOPs": DEFAULT.mm_measured_gflops,
+                        "GFLOPs_per_W": DEFAULT.mm_gflops_per_watt,
+                        "note": "the paper's HLS accelerator at 300 MHz; "
+                                "the card's GFLOP/s per W above is per W "
+                                "of its power limit, not of measured draw"},
+         "card": smi}]
+    head = next(t for t in timings if t["mnk"] == list(MM_HEADLINE[0])
+                and t["dtype"] == str(MM_HEADLINE[1])[6:])
+    entry = {"name": "matmul_tile", "route": "cuda", "source": MM_SRC,
+             "replaces": MM_TPU_SRC, "launches": launches,
+             "max_abs_err": max(r["max_err"] for r in results),
+             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"],
+             "tol": "|kernel - plain| <= atol + rtol |plain|: f32 rtol 1e-3 "
+                    "atol 8e-3, bf16/f16 rtol 2e-2 atol 0.16",
+             "path": "matmul (the section 7 products through "
+                     "repro_torch.kernels.matmul)",
+             "timing_shape": head["mnk"] + [head["dtype"]]}
+    return lines, entry
 
 
 # ------------------------------------------------------------------ dp phase
@@ -793,7 +1033,7 @@ def ssd_checks(model, params, tokens) -> tuple[list[dict], tuple]:
 
 
 def ssm_phases(smi: str, acts) -> dict:
-    """Phases 10-13 on full-width mamba2-2.7b; returns ssd_scan's entry of
+    """Phases 11-14 on full-width mamba2-2.7b; returns ssd_scan's entry of
     the kernels line."""
     from repro_torch import tree as tree_util
     from repro_torch.configs import get
@@ -818,7 +1058,7 @@ def ssm_phases(smi: str, acts) -> dict:
     data = SyntheticTokens(cfg, batch=SSM_TRAIN["batch"],
                            seq=SSM_TRAIN["seq"], seed=0, device="cuda")
 
-    # ------------------------------------------------------ 10. ssd_kernel
+    # ------------------------------------------------------ 11. ssd_kernel
     results, (x, dt, A, B, C) = ssd_checks(model, state["params"],
                                            data.batch_at(0)["tokens"])
     b, l, h, p = x.shape
@@ -836,8 +1076,9 @@ def ssm_phases(smi: str, acts) -> dict:
                                     reps=20)
     plain_ms = time_ms(lambda: ssd_ref(*nxt()), reps=1, batches=3)
     nbytes, flops = ssd_cost(b, l, h, p, n, chunk, x.element_size())
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    hbm, _, f32_peak = card_peaks()
+    bytes_ms = nbytes / hbm * 1e3
+    ops_ms = flops / f32_peak * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     emit({"phase": "ssd_kernel", "arch": cfg.name, "checks": results,
           "init_state_s": init_s,
@@ -854,7 +1095,7 @@ def ssm_phases(smi: str, acts) -> dict:
     del sets, other, x, dt, A, B, C
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------------- 11. ssm_train
+    # ------------------------------------------------------- 12. ssm_train
     step_fn = tr.make_step()
     held = [data.batch_at(i) for i in range(*SSM_TRAIN["eval_steps"])]
 
@@ -908,7 +1149,7 @@ def ssm_phases(smi: str, acts) -> dict:
         raise AssertionError(f"the ssm loss did not fall: held-out batches "
                              f"{held_before} -> {held_after}")
 
-    # ----------------------------------------------- 12. ssm_train_profile
+    # ----------------------------------------------- 13. ssm_train_profile
     n_prof = 2
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -931,7 +1172,7 @@ def ssm_phases(smi: str, acts) -> dict:
           "card": smi})
     del prof
 
-    # ------------------------------------------------------ 13. ssm_decode
+    # ------------------------------------------------------ 14. ssm_decode
     # the model in bf16 and its float32 twin on the same weights (bf16
     # widens to float32 exactly): in float32 the decode must continue the
     # prefill to the reference's 3e-2. In bf16 the 64 layers' roundings
@@ -1022,6 +1263,7 @@ def main() -> int:
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.flash_decode.ops import decode_attn, hbm_bytes
     from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.kernels.matmul_tile import kernel as mk
     from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.launch import train as launch_train
     from repro_torch.models import build_model
@@ -1046,7 +1288,7 @@ def main() -> int:
         return time.perf_counter() - t
 
     kmods = (("flash_decode", fd), ("allreduce_combine", ck),
-             ("ssd_scan", sk))
+             ("ssd_scan", sk), ("matmul_tile", mk))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kmods)) as pool:
         futs = {name: pool.submit(timed_build, mod) for name, mod in kmods}
@@ -1124,8 +1366,9 @@ def main() -> int:
     lens = lengths.cpu().tolist()
     nbytes = hbm_bytes(lens, H, K, dk, dv, dtype_bytes=2)
     flops = sum(lens) * H * 2 * (dk + dv)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    hbm, _, f32_peak = card_peaks()
+    bytes_ms = nbytes / hbm * 1e3
+    ops_ms = flops / f32_peak * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     emit({"phase": "kernels", "checks": results, "timing_shape":
           dict(sv, lengths=lens), "n_splits": fd.num_splits(
@@ -1159,8 +1402,8 @@ def main() -> int:
     c_plain_ms = time_ms(lambda: combine_ref(c_nxt(), "sum"))
     c_lib_ms = time_ms(lambda: torch.sum(c_nxt(), 0, dtype=torch.float32))
     c_bytes = (P + 1) * L * 4
-    c_bytes_ms = c_bytes / HBM_BYTES_PER_S * 1e3
-    c_ops_ms = (P - 1) * L / F32_FLOP_PER_S * 1e3
+    c_bytes_ms = c_bytes / hbm * 1e3
+    c_ops_ms = (P - 1) * L / f32_peak * 1e3
     c_bound_ms = max(c_bytes_ms, c_ops_ms)
     c_max_err = max(r["max_err"] for r in c_results)
     emit({"phase": "combine", "checks": c_results,
@@ -1173,7 +1416,12 @@ def main() -> int:
           "achieved_GBps": c_bytes / (c_ms * 1e-3) / 1e9, "card": smi})
     del c_sets
 
-    # ----------------------------------------------------------- 5. serve
+    # ---------------------------------------------------------- 5. matmul
+    mm_lines, mm_entry = matmul_phase(smi)
+    for line in mm_lines:
+        emit(line)
+
+    # ----------------------------------------------------------- 6. serve
     cfg = get("exanest-lm-100m")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cuda")
@@ -1231,7 +1479,7 @@ def main() -> int:
                                  "max_err": cache_err, "tol": 2e-2},
           "first_tokens": outs[0][:8], "card": smi})
 
-    # --------------------------------------------------------- 6. profile
+    # --------------------------------------------------------- 7. profile
     # where a decode_step's time goes: the engine's own call (decode_step on
     # its cache at the mid-run positions, logits back to the host), traced
     batch = {"token": torch.zeros(8, dtype=torch.int32, device="cuda"),
@@ -1258,7 +1506,7 @@ def main() -> int:
     del eng, params, prof
     torch.cuda.empty_cache()
 
-    # -------------------------------------------------------------- 7. dp
+    # -------------------------------------------------------------- 8. dp
     for f in OUT.glob("dp_rank*.json"):
         f.unlink()
     t0 = time.perf_counter()
@@ -1298,7 +1546,7 @@ def main() -> int:
           "wall_s": dp_wall, "card": smi})
     dp_steps = sum(1 for k in r0["steps"] if not k.startswith("flat"))
 
-    # ----------------------------------------------------------- 8. train
+    # ----------------------------------------------------------- 9. train
     ckpt = OUT / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -1334,7 +1582,7 @@ def main() -> int:
                              f"{first5}, of the last 5 {last5}")
     state = run.pop("state")
 
-    # --------------------------------------------------- 9. train_profile
+    # -------------------------------------------------- 10. train_profile
     from repro_torch import tree as tree_util
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.models.attention import flash_attention
@@ -1413,7 +1661,7 @@ def main() -> int:
     del st, state, p, grads, qkv, h, head, run, model
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------ 10-13. Mamba-2 phases
+    # ------------------------------------------------ 11-14. Mamba-2 phases
     ssd_entry = ssm_phases(smi, acts)
 
     # ---------------------------------------------------------- summary
@@ -1433,7 +1681,7 @@ def main() -> int:
         "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
         "library_ms": c_lib_ms, "tol": 1e-2, "path": "dp (rank 0)",
         "launches_per_synced_step": dp_launches / max(dp_steps, 1)},
-        ssd_entry]})
+        ssd_entry, mm_entry]})
     (OUT / "chip_smoke.json").write_text(json.dumps(LINES, indent=1))
     print(smi, flush=True)
     # the card this run used: every phase runs on cuda:0 alone

@@ -14,4 +14,18 @@ tensors the kernel).
 * ``ssd_scan`` — the Mamba-2 SSD chunked dual form (replaces
   ``repro.kernels.ssd_scan``; every Mamba-2 layer's forward and
   recompute on the training path).
+* ``matmul_tile`` — the paper's section 7 MatMul accelerator: C = A @ B
+  with float32 accumulation (replaces ``repro.kernels.matmul_tile``; its
+  entry point :func:`matmul` and the section 7 evaluation,
+  :mod:`repro_torch.roofline.paper`). The models' projections stay
+  ``torch.matmul``, as the reference's stay XLA dots.
+
+Importing this package imports the four entry points and builds nothing.
 """
+
+from repro_torch.kernels.matmul_tile.ops import matmul
+from repro_torch.kernels.allreduce_combine.ops import combine_parts
+from repro_torch.kernels.flash_decode.ops import decode_attn
+from repro_torch.kernels.ssd_scan.ops import ssd
+
+__all__ = ["matmul", "combine_parts", "decode_attn", "ssd"]

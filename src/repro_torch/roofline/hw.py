@@ -1,0 +1,48 @@
+"""Hardware figures of the card the port targets, for roofline bounds.
+
+The port's counterpart of the reference's ``repro.roofline.hw``: the same
+:class:`HwSpec` fields, so code written against the reference's spec reads
+this one, and an :data:`H100` spec from NVIDIA's published figures for the
+H100 SXM5 80 GB (data sheet, dense rates without sparsity, at the full
+700 W power limit). A card set to a lower power limit runs slower under
+load; a bound computed from these figures is a bound at 700 W.
+"""
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class HwSpec:
+    name: str
+    peak_bf16_flops: float      # FLOP/s per chip
+    hbm_bw: float               # bytes/s per chip
+    hbm_bytes: float            # capacity per chip
+    ici_link_bw: float          # bytes/s per chip-to-chip link, each way
+    ici_links: int              # chip-to-chip links per chip
+    dcn_bw: float               # bytes/s per chip between hosts
+    vmem_bytes: float           # fast on-chip memory one kernel block holds
+    mxu_tile: int               # rows of the matrix unit's tile
+
+
+#: H100 SXM5 80 GB. The fields named for the reference's chip hold, on this
+#: card: ``ici_link_bw``/``ici_links`` its NVLink 4 (18 links of 25 GB/s
+#: each way, 450 GB/s each way in all, to the other cards of the host);
+#: ``dcn_bw`` one 400 Gb/s NIC per card (DGX H100), the bytes/s between
+#: hosts; ``vmem_bytes`` the shared memory one thread block can use
+#: (227 KB of the SM's 256 KB); ``mxu_tile`` the 64 rows of a ``wgmma``
+#: tile.
+H100 = HwSpec(
+    name="h100-sxm5-80gb",
+    peak_bf16_flops=989.4e12,
+    hbm_bw=3.35e12,
+    hbm_bytes=80 * 2 ** 30,
+    ici_link_bw=25e9,
+    ici_links=18,
+    dcn_bw=50e9,
+    vmem_bytes=232_448,
+    mxu_tile=64,
+)
+
+#: H100 SXM5 float32 FLOP/s on the CUDA cores (FFMA, outside the tensor
+#: cores; TF32 is not float32)
+H100_PEAK_F32_FLOPS = 66.9e12

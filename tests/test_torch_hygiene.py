@@ -114,3 +114,26 @@ def test_ssm_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "mamba2-2.7b", "--reduced",
                            "--ckpt-dir", str(tmp_path)])
+
+
+def test_matmul_slice_is_scanned_builds_nothing_and_names_no_tpu_spec():
+    """The section 7 slice's modules are in the scan above, importing them
+    builds no kernel, and the port's roofline holds the card's spec only."""
+    for mod in ("kernels/matmul_tile/kernel.py", "kernels/matmul_tile/ops.py",
+                "kernels/matmul_tile/ref.py", "roofline/hw.py",
+                "roofline/paper.py", "core/exanet/params.py"):
+        assert PORT / mod in FILES
+    code = ("import repro_torch.kernels, repro_torch.roofline.paper\n"
+            "from repro_torch.kernels import _build\n"
+            "assert not _build._libs and not _build.build_logs\n"
+            "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(PORT.parent)}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0 and res.stdout.startswith("ok"), res.stderr
+    from repro_torch.roofline import hw
+    specs = [v for v in vars(hw).values() if isinstance(v, hw.HwSpec)]
+    assert specs == [hw.H100]
+    for sub in ("roofline", "kernels/matmul_tile", "core/exanet"):
+        for p in (PORT / sub).rglob("*.py"):
+            assert "v5e" not in p.read_text().lower(), p

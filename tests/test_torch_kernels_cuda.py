@@ -132,3 +132,62 @@ def test_ssd_scan_matches_plain_on_card(shape, dtype, cuda_device):
     for got, want in ((y, y_r), (st, st_r)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=tol, atol=tol * 10)
+
+
+# (M, N, K, bk): the reference's matmul test shapes (bk 128), one
+# exanest-lm-100m projection (4096 tokens, gate/up 768 -> 2048, bk 256), and
+# shapes the contract takes that no tile divides: depth 301 (element-wise
+# path in every dtype), 100 x 100 x 100 (vectors in f32 only) and N = 100
+MATMUL_SHAPES = [(128, 128, 128, 128), (256, 128, 512, 128),
+                 (384, 256, 256, 128), (128, 384, 640, 128),
+                 (4096, 2048, 768, 256), (128, 128, 301, 512),
+                 (100, 100, 100, 512), (256, 100, 512, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
+def test_matmul_tile_matches_plain_on_card(shape, dtype, cuda_device):
+    from repro_torch.kernels.matmul_tile import kernel as mm_kernel
+    from repro_torch.kernels.matmul_tile.ref import matmul_ref
+    M, N, K, bk = shape
+    rng = np.random.default_rng(17)
+    a = torch.from_numpy(rng.standard_normal((M, K), np.float32))
+    b = torch.from_numpy(rng.standard_normal((K, N), np.float32))
+    a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    before = mm_kernel.launches
+    got = mm_kernel.matmul_tile(a, b, bk=bk)
+    want = matmul_ref(a, b)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    # the reference's kernel tolerances (tests/test_kernels.py): f32 sums in
+    # another order; bf16 and f16 outputs rounded once from float32 sums
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_tile_kblocks_accumulate_exactly_on_card(dtype, cuda_device):
+    """A K sweep of 2048 ones gives exactly 2048 (the reference's case)."""
+    from repro_torch.kernels.matmul_tile import kernel as mm_kernel
+    a = torch.ones((128, 2048), dtype=dtype, device=cuda_device)
+    b = torch.ones((2048, 128), dtype=dtype, device=cuda_device)
+    got = mm_kernel.matmul_tile(a, b, bk=256)
+    assert bool((got.float() == 2048.0).all())
+
+
+@pytest.mark.cuda
+def test_matmul_tile_refuses_what_the_contract_refuses_on_card(cuda_device):
+    from repro_torch.kernels.matmul_tile.ops import matmul
+    a = torch.zeros((4096, 768), dtype=torch.bfloat16, device=cuda_device)
+    b = torch.zeros((768, 768), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="not divisible"):
+        matmul(a, b)                       # bk 512 does not divide 768
+    assert matmul(a, b, bk=256).shape == (4096, 768)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul(a, b.t(), bk=256)
