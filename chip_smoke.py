@@ -8,7 +8,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
 1. env      nvidia-smi's card name and power limit, torch and CUDA versions.
 2. build    builds the four kernels from their CUDA sources with nvcc, one
             nvcc per source, started together (into build/kernels/), and
-            reports the seconds and ptxas' report of each.
+            reports the seconds and ptxas' report of each (registers,
+            spills, wgmma serialisation warnings).
 3. kernels  holds flash_decode against its plain PyTorch version on the
             card: the reference package's three test shapes (f32 1e-4, bf16
             2e-2), the serving shape B=8 H=12 K=4 d=64 S=2048 in bf16 and a
@@ -26,20 +27,28 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             (a yardstick the port never calls) at (2, 2,500,000) f32.
 5. matmul   holds matmul_tile (the paper's section 7 MatMul accelerator)
             against its plain version through repro_torch.kernels.matmul,
-            TF32 off: the reference's four test shapes (bk 128) in f32,
-            bf16 and f16 and three shapes its tile contract takes that no
-            128-wide tile divides; the exact K=2048 sweep of ones; the five
-            exanest-lm-100m projections at 4096 tokens (bk 256), f32 and
-            bf16, at the reference's tolerances (f32 rtol 1e-3 atol 8e-3,
-            bf16/f16 2e-2 / 0.16); that the shapes the contract refuses
-            raise before any launch. Prints matmul_accel_rows for the H100
-            (roofline/paper.py), then runs the section 7 path: 1024^3,
-            4096^3 and 8192^3 in bf16 and f32 through the entry point, the
-            launch counter read around them, each held against the plain
-            version; then times kernel, plain version and torch.matmul (a
+            TF32 off, and asserts which variant (launches_by_variant) ran
+            each shape: the wgmma descriptor check (one TMA stage, one
+            warpgroup, 64x256x64 random, bf16 and f16); the reference's
+            four test shapes (bk 128) in f32, bf16 and f16 (ffma, wgmma);
+            three shapes its tile contract takes that no 128-wide tile
+            divides (ffma, and mma_sync in 16 bits: no row is 16-byte
+            aligned); shapes where TMA zero-fills every edge, through the
+            tile variant_for picks and the 128x256 one (wgmma); the exact
+            K=2048 sweep of ones (ffma; wgmma and mma_sync in bf16 and
+            f16); the five exanest-lm-100m projections at 4096 tokens (bk
+            256), f32 and bf16; all at the reference's tolerances (f32 rtol
+            1e-3 atol 8e-3, bf16/f16 2e-2 / 0.16); that the shapes the
+            contract refuses raise before any launch. Prints
+            matmul_accel_rows for the H100 (roofline/paper.py), then runs
+            the section 7 path: 1024^3, 4096^3 and 8192^3 in bf16 and f32
+            through the entry point, the launch counters read around them
+            (bf16 through wgmma, f32 through ffma), each held against the
+            plain version; then times kernel, mma_sync at the same bf16
+            shapes (through _launch), plain version and torch.matmul (a
             yardstick the port never calls) at those shapes beside the
             bound, TFLOP/s, the share of the peak and GFLOP/s per W of the
-            power limit.
+            power limit, and the bf16 projections beside torch.matmul.
 6. serve    full-width exanest-lm-100m in bf16 with random weights from
             torch.Generator seed 0, ServeEngine(slots=8, window=2048), 16
             requests with prompt lengths 64-1024 (numpy seed 0) and 32 new
@@ -154,6 +163,11 @@ MM_PROJ = (("q/out", 768, 768), ("k/v", 256, 768), ("gate/up", 2048, 768),
 #: (M, N, K): depth 301 (element-wise loads in every dtype), 100 cubed
 #: (16-byte vectors in f32 only), N = 100
 MM_EDGE_SHAPES = ((128, 128, 301), (100, 100, 100), (256, 100, 512))
+#: shapes through wgmma where TMA zero-fills an edge (M, N, K, bk): all
+#: three ragged; one row; N = 640 (half a 256-wide tile, through the
+#: 128x256 tile as well as the one variant_for picks)
+MM_WGMMA_EDGE_SHAPES = ((72, 120, 200, 512), (1, 128, 512, 512),
+                        (384, 640, 1024, 512))
 #: the reference's kernel tolerances (tests/test_kernels.py), (rtol, atol):
 #: |kernel - plain| <= atol + rtol |plain|
 MM_TOL = {torch.float32: (1e-3, 8e-3), torch.bfloat16: (2e-2, 0.16),
@@ -318,6 +332,10 @@ def ptxas_report(log: str) -> list[str]:
             # ...mm16_kernelI13__nv_bfloat16Lb1EE..., ...mm32_kernelILb0EE...
             mm = re.search(r"(mm16_kernel|mm32_kernel)I(13__nv_bfloat16|6__half)?"
                            r"Lb(\d)E", ln)
+            # ...mm_wgmma_kernelI6__halfLi128ELi256ELi4EE...: <T, BM, BN,
+            # stages>; ...mm_wgmma_probe_kernelI13__nv_bfloat16EE...
+            wg = re.search(r"(mm_wgmma_(?:probe_)?kernel)I(13__nv_bfloat16|"
+                           r"6__half)((?:Li\d+E)*)", ln)
             if m:
                 dims = ",".join(re.findall(r"Li(\d+)E", m[3]))
                 entry = f"{m[1]}<{dtypes[m[2]]},{dims}>"
@@ -332,12 +350,16 @@ def ptxas_report(log: str) -> list[str]:
                         None: ""}[mm[2]]
                 entry = (f"{mm[1]}<{kind}"
                          f"{'vec' if mm[3] == '1' else 'scalar'}>")
+            elif wg:
+                dims = "".join("," + d for d in re.findall(r"Li(\d+)E", wg[3]))
+                kind = "bf16" if wg[2] == "13__nv_bfloat16" else "f16"
+                entry = f"{wg[1]}<{kind}{dims}>"
             else:
                 entry = ln.strip()
         elif "Used" in ln:
             out.append(f"{entry}: {ln.split(':', 1)[1].strip()}")
-        elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" \
-                not in ln:
+        elif ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
+              not in ln) or "Performance Loss" in ln:
             out.append(f"{entry}: {ln.strip()}")
     return out
 
@@ -507,26 +529,63 @@ def matmul_phase(smi: str) -> tuple[list[dict], dict]:
             raise AssertionError(f"matmul_tile disagrees on {label} "
                                  f"{a.dtype}: excess {excess} > {atol}")
 
-    def check(label, a, b, bk, exact=None):
-        before = mk.launches
-        got = matmul(a, b, bk=bk)
+    def launched(run):
+        """run()'s result and the one variant it launched."""
+        before = dict(mk.launches_by_variant)
+        got = run()
         torch.cuda.synchronize()
-        if mk.launches != before + 1:
-            raise AssertionError(f"matmul {label}: no kernel launch")
-        compare(label, a, b, got, exact)
+        ran = [v for v, n in mk.launches_by_variant.items()
+               if n != before[v]]
+        if len(ran) != 1 or mk.launches_by_variant[ran[0]] != \
+                before[ran[0]] + 1:
+            raise AssertionError(f"expected one launch, got {ran}")
+        return got, ran[0]
 
+    def check(label, a, b, bk, want_variant, exact=None, tile=None):
+        if tile is None:
+            got, ran = launched(lambda: matmul(a, b, bk=bk))
+        else:
+            got, ran = launched(lambda: mk._launch(a, b, want_variant, tile))
+        if ran != want_variant:
+            raise AssertionError(f"matmul {label} {a.dtype} launched {ran}, "
+                                 f"not {want_variant}")
+        compare(label, a, b, got, exact)
+        results[-1]["variant"] = ran
+        results[-1]["tile"] = tile or mk.variant_for(a, b, got)[1]
+
+    def aligned_variant(dtype):
+        """The variant a shape with 16-byte rows runs."""
+        return "ffma" if dtype == torch.float32 else "wgmma"
+
+    # the descriptor check: one TMA stage and one warpgroup, random inputs
+    for dtype in (torch.bfloat16, torch.float16):
+        a, b = inputs(64, 256, 64, dtype)
+        compare("wgmma-descriptor-probe-64x256x64", a, b,
+                mk.wgmma_probe(a, b))
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for M, N, K in MM_TEST_SHAPES:
-            check(f"jax-test-{M}x{N}x{K}", *inputs(M, N, K, dtype), 128)
-        for M, N, K in MM_EDGE_SHAPES:
-            check(f"edge-{M}x{N}x{K}", *inputs(M, N, K, dtype), 512)
-    for dtype in (torch.float32, torch.bfloat16):
+            check(f"jax-test-{M}x{N}x{K}", *inputs(M, N, K, dtype), 128,
+                  aligned_variant(dtype))
+        for M, N, K in MM_EDGE_SHAPES:   # no 16-bit row is 16-byte aligned
+            check(f"edge-{M}x{N}x{K}", *inputs(M, N, K, dtype), 512,
+                  "ffma" if dtype == torch.float32 else "mma_sync")
+    for dtype in (torch.bfloat16, torch.float16):
+        for M, N, K, bk in MM_WGMMA_EDGE_SHAPES:
+            ab = inputs(M, N, K, dtype)
+            check(f"wgmma-edge-{M}x{N}x{K}", *ab, bk, "wgmma")
+            check(f"wgmma-edge-{M}x{N}x{K}", *ab, bk, "wgmma",
+                  tile=(128, 256))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         ones = (torch.ones((128, 2048), device=dev, dtype=dtype),
                 torch.ones((2048, 128), device=dev, dtype=dtype))
-        check("ones-K2048", *ones, 256, exact=2048.0)
+        check("ones-K2048", *ones, 256, aligned_variant(dtype), exact=2048.0)
+        if dtype != torch.float32:
+            check("ones-K2048", *ones, 256, "mma_sync", exact=2048.0,
+                  tile=mk.TILE)
+    for dtype in (torch.float32, torch.bfloat16):
         for name, N, K in MM_PROJ:
             check(f"exanest-lm-100m-{name}", *inputs(MM_PROJ_M, N, K, dtype),
-                  256)
+                  256, aligned_variant(dtype))
     # what the contract refuses raises on the card too, before any launch
     refused = {}
     z = torch.zeros((MM_PROJ_M, 2560), device=dev, dtype=torch.bfloat16)
@@ -554,20 +613,28 @@ def matmul_phase(smi: str) -> tuple[list[dict], dict]:
     rows = matmul_accel_rows(H100)
     torch.cuda.synchronize()
     mk.launches = 0
+    mk.launches_by_variant.update(dict.fromkeys(mk.VARIANTS, 0))
     path = []
     for dtype in (torch.bfloat16, torch.float32):
         for M, N, K in SHAPES:
             a, b = inputs(M, N, K, dtype)
             before = mk.launches
+            by_variant = dict(mk.launches_by_variant)
             c = matmul(a, b)
             torch.cuda.synchronize()
-            path.append((M, N, K, dtype, mk.launches - before))
+            ran = [v for v, n in mk.launches_by_variant.items()
+                   if n != by_variant[v]]
+            path.append((M, N, K, dtype, mk.launches - before, ran))
             compare(f"section7-{M}^3", a, b, c)
             del a, b, c
     launches = mk.launches
-    if launches != len(path) or any(n != 1 for *_, n in path):
+    path_by_variant = dict(mk.launches_by_variant)
+    if launches != len(path) or any(n != 1 for *_, n, _ in path):
         raise AssertionError(f"the section 7 path launched matmul_tile "
-                             f"{[n for *_, n in path]} times")
+                             f"{[n for *_, n, _ in path]} times")
+    for M, N, K, dtype, _, ran in path:
+        if ran != [aligned_variant(dtype)]:
+            raise AssertionError(f"section 7 {M}^3 {dtype} launched {ran}")
 
     # timings at the section 7 shapes: kernel, plain version, torch.matmul
     limit_w = power_limit_w(smi)
@@ -578,15 +645,23 @@ def matmul_phase(smi: str) -> tuple[list[dict], dict]:
             a, b = inputs(M, N, K, dtype)
             flops = 2 * M * N * K
             nbytes = a.element_size() * (M * K + K * N + M * N)
+            out = torch.empty((M, N), dtype=dtype, device=dev)
+            variant, tile = mk.variant_for(a, b, out)
             kernel_ms = time_auto_ms(lambda: matmul(a, b))
+            # the Ampere-form variant at the same shape, for comparison
+            mma_sync_ms = (None if dtype == torch.float32 else time_auto_ms(
+                lambda: mk._launch(a, b, "mma_sync", out=out)))
             plain_ms = time_auto_ms(lambda: matmul_ref(a, b))
             library_ms = time_auto_ms(lambda: torch.matmul(a, b))
             bytes_ms, ops_ms = nbytes / hbm * 1e3, flops / peak * 1e3
             gflops = flops / (kernel_ms * 1e-3) / 1e9
             timings.append({
                 "mnk": [M, N, K], "dtype": str(dtype)[6:],
-                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms,
+                "variant": variant, "tile": list(tile),
+                "kernel_ms": kernel_ms, "mma_sync_ms": mma_sync_ms,
+                "mma_sync_share_of_peak": None if mma_sync_ms is None
+                else flops / (mma_sync_ms * 1e-3) / peak,
+                "plain_ms": plain_ms, "library_ms": library_ms,
                 "library": "torch.matmul(a, b), TF32 off",
                 "bound_ms": max(bytes_ms, ops_ms), "bound_bytes": nbytes,
                 "bound_flops": flops,
@@ -594,10 +669,28 @@ def matmul_phase(smi: str) -> tuple[list[dict], dict]:
                 "peak_flops": peak, "TFLOPs": gflops / 1e3,
                 "share_of_peak": gflops * 1e9 / peak,
                 "library_TFLOPs": flops / (library_ms * 1e-3) / 1e12,
+                "library_share_of_peak": flops / (library_ms * 1e-3) / peak,
+                "plain_share_of_peak": flops / (plain_ms * 1e-3) / peak,
                 "kernel_over_library": kernel_ms / library_ms,
                 "GFLOPs_per_W_of_power_limit":
                     None if limit_w is None else gflops / limit_w})
-            del a, b
+            del a, b, out
+    # exanest-lm-100m's projections at 4096 tokens in bf16, beside the
+    # library (no model op calls the kernel; these are measurements only)
+    proj = []
+    for name, N, K in MM_PROJ:
+        a, b = inputs(MM_PROJ_M, N, K, torch.bfloat16)
+        flops = 2 * MM_PROJ_M * N * K
+        nbytes = 2 * (MM_PROJ_M * K + K * N + MM_PROJ_M * N)
+        kernel_ms = time_auto_ms(lambda: matmul(a, b, bk=256))
+        library_ms = time_auto_ms(lambda: torch.matmul(a, b))
+        proj.append({"name": name, "mnk": [MM_PROJ_M, N, K],
+                     "tile": list(mk.wgmma_tile(MM_PROJ_M, N, K)),
+                     "kernel_ms": kernel_ms, "library_ms": library_ms,
+                     "bound_ms": max(nbytes / hbm, flops / bf16_peak) * 1e3,
+                     "share_of_peak":
+                         flops / (kernel_ms * 1e-3) / bf16_peak})
+        del a, b
     torch.cuda.empty_cache()
     from repro_torch.core.exanet.params import DEFAULT
     lines = [
@@ -606,9 +699,11 @@ def matmul_phase(smi: str) -> tuple[list[dict], dict]:
         {"phase": "matmul", "checks": results, "refused": refused,
          "section7_path": {"entry": "repro_torch.kernels.matmul",
                            "launches": launches,
-                           "calls": [[M, N, K, str(d)[6:], n]
-                                     for M, N, K, d, n in path]},
-         "timings": timings, "power_limit_W": limit_w,
+                           "launches_by_variant": path_by_variant,
+                           "calls": [[M, N, K, str(d)[6:], n, ran]
+                                     for M, N, K, d, n, ran in path]},
+         "timings": timings, "projections_bf16": proj,
+         "power_limit_W": limit_w,
          "paper_fpga": {"GFLOPs": DEFAULT.mm_measured_gflops,
                         "GFLOPs_per_W": DEFAULT.mm_gflops_per_watt,
                         "note": "the paper's HLS accelerator at 300 MHz; "
@@ -620,9 +715,11 @@ def matmul_phase(smi: str) -> tuple[list[dict], dict]:
     entry = {"name": "matmul_tile", "route": "cuda", "source": MM_SRC,
              "replaces": MM_TPU_SRC, "launches": launches,
              "max_abs_err": max(r["max_err"] for r in results),
-             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+             "variant": head["variant"], "ms": head["kernel_ms"],
+             "mma_sync_ms": head["mma_sync_ms"], "plain_ms": head["plain_ms"],
              "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
              "library_ms": head["library_ms"],
+             "launches_by_variant": path_by_variant,
              "tol": "|kernel - plain| <= atol + rtol |plain|: f32 rtol 1e-3 "
                     "atol 8e-3, bf16/f16 rtol 2e-2 atol 0.16",
              "path": "matmul (the section 7 products through "

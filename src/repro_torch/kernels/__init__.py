@@ -17,7 +17,10 @@ tensors the kernel).
 * ``matmul_tile`` — the paper's section 7 MatMul accelerator: C = A @ B
   with float32 accumulation (replaces ``repro.kernels.matmul_tile``; its
   entry point :func:`matmul` and the section 7 evaluation,
-  :mod:`repro_torch.roofline.paper`). The models' projections stay
+  :mod:`repro_torch.roofline.paper`). bf16/f16 rows that TMA can address
+  (K, N multiples of 8, 16-byte aligned pointers) go to the ``wgmma``
+  variant, other 16-bit rows to ``mma_sync``, float32 to ``ffma``
+  (``kernel.variant_for``). The models' projections stay
   ``torch.matmul``, as the reference's stay XLA dots.
 
 Importing this package imports the four entry points and builds nothing.

@@ -156,11 +156,17 @@ def test_matmul_tile_matches_plain_on_card(shape, dtype, cuda_device):
     a = torch.from_numpy(rng.standard_normal((M, K), np.float32))
     b = torch.from_numpy(rng.standard_normal((K, N), np.float32))
     a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    # float32 on the CUDA cores; 16-bit rows TMA can address (K, N
+    # multiples of 8) through wgmma, the others through mma_sync
+    variant = ("ffma" if dtype == torch.float32
+               else "mma_sync" if K % 8 or N % 8 else "wgmma")
     before = mm_kernel.launches
+    by_variant = mm_kernel.launches_by_variant[variant]
     got = mm_kernel.matmul_tile(a, b, bk=bk)
     want = matmul_ref(a, b)
     torch.cuda.synchronize()
     assert mm_kernel.launches == before + 1
+    assert mm_kernel.launches_by_variant[variant] == by_variant + 1
     assert got.dtype == dtype and got.shape == (M, N)
     # the reference's kernel tolerances (tests/test_kernels.py): f32 sums in
     # another order; bf16 and f16 outputs rounded once from float32 sums
@@ -179,6 +185,76 @@ def test_matmul_tile_kblocks_accumulate_exactly_on_card(dtype, cuda_device):
     b = torch.ones((2048, 128), dtype=dtype, device=cuda_device)
     got = mm_kernel.matmul_tile(a, b, bk=256)
     assert bool((got.float() == 2048.0).all())
+
+
+# (M, N, K, bk): shapes through wgmma where TMA zero-fills an edge: M, N and
+# K all ragged; one row; a 640-wide N (half a 256-wide tile); the logits
+# projection of exanest-lm-100m at 4096 tokens (bk 256)
+WGMMA_EDGE_SHAPES = [(72, 120, 200, 512), (1, 128, 512, 512),
+                     (384, 640, 1024, 512), (4096, 32000, 768, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None, (128, 256), (128, 128), (64, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", WGMMA_EDGE_SHAPES)
+def test_matmul_tile_wgmma_edges_match_plain_on_card(shape, dtype, tile,
+                                                     cuda_device):
+    """Through the entry point (tile None: the tile variant_for picks) and
+    through each wgmma tile, against the plain version."""
+    from repro_torch.kernels.matmul_tile import kernel as mm_kernel
+    from repro_torch.kernels.matmul_tile.ref import matmul_ref
+    M, N, K, bk = shape
+    rng = np.random.default_rng(19)
+    a = torch.from_numpy(rng.standard_normal((M, K), np.float32))
+    b = torch.from_numpy(rng.standard_normal((K, N), np.float32))
+    a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    before = mm_kernel.launches_by_variant["wgmma"]
+    if tile is None:
+        got = mm_kernel.matmul_tile(a, b, bk=bk)
+    else:
+        got = mm_kernel._launch(a, b, "wgmma", tile)
+    want = matmul_ref(a, b)
+    torch.cuda.synchronize()
+    assert mm_kernel.launches_by_variant["wgmma"] == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=0.16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_matmul_tile_variants_accumulate_exactly_on_card(dtype, variant,
+                                                         cuda_device):
+    """The K = 2048 sweep of ones through each 16-bit variant: exactly 2048."""
+    from repro_torch.kernels.matmul_tile import kernel as mm_kernel
+    a = torch.ones((128, 2048), dtype=dtype, device=cuda_device)
+    b = torch.ones((2048, 128), dtype=dtype, device=cuda_device)
+    got = mm_kernel._launch(a, b, variant)
+    assert bool((got.float() == 2048.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wgmma_descriptor_probe_matches_plain_on_card(dtype, cuda_device):
+    """One TMA stage, one warpgroup: C (64 x 256) = A (64 x 64) @ B (64 x
+    256) on random inputs. A swapped leading and stride offset, a wrong
+    swizzle or an untransposed B gives wrong values here, where a sweep of
+    ones cannot see them."""
+    from repro_torch.kernels.matmul_tile import kernel as mm_kernel
+    from repro_torch.kernels.matmul_tile.ref import matmul_ref
+    rng = np.random.default_rng(23)
+    a = torch.from_numpy(rng.standard_normal((64, 64), np.float32))
+    b = torch.from_numpy(rng.standard_normal((64, 256), np.float32))
+    a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+    got = mm_kernel.wgmma_probe(a, b)
+    want = matmul_ref(a, b)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=0.16)
 
 
 @pytest.mark.cuda

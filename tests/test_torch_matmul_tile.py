@@ -173,9 +173,17 @@ def test_matmul_routes_by_device_and_builds_nothing(monkeypatch):
     # through it, and it raises before touching the library
     with pytest.raises(ValueError, match="CUDA device"):
         mk.matmul_tile(torch.ones((128, 128)), torch.ones((128, 128)))
-    launches = mk.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        mk._launch(torch.ones((128, 128)), torch.ones((128, 128)), "ffma")
+    with pytest.raises(ValueError, match="CUDA device"):
+        mk.wgmma_probe(torch.ones((64, 64), dtype=torch.bfloat16),
+                       torch.ones((64, 256), dtype=torch.bfloat16))
+    # choosing the variant reads shapes and pointers only
+    h = torch.ones((4096, 4096), dtype=torch.bfloat16)
+    assert mk.variant_for(h, h, h) == ("wgmma", (128, 256))
+    launches, by_variant = mk.launches, dict(mk.launches_by_variant)
     matmul(torch.ones((128, 128)), torch.ones((128, 128)))
-    assert mk.launches == launches
+    assert mk.launches == launches and mk.launches_by_variant == by_variant
 
 
 @pytest.mark.parametrize("dtype,mnk,want", [
@@ -254,3 +262,86 @@ def test_section7_path_on_the_cpu_matches_reference():
         want = np.asarray(jax_matmul(ja, jb), np.float32)
         tol = TOL[dtype]
         np.testing.assert_allclose(got, want, rtol=tol, atol=tol * 8)
+
+
+# (M, N, K, dtype, variant, tile) the kernel should run: the section 7
+# products; exanest-lm-100m's projections at 4096 tokens (q/out, k/v,
+# gate/up, down, logits); the on-card edge shapes; the shapes TMA cannot
+# address (K = 301, N = 100, 100 cubed in 16 bits)
+VARIANT_CASES = [
+    *[(n, n, n, "bfloat16", "wgmma", t)
+      for n, t in ((1024, (64, 128)), (4096, (128, 256)),
+                   (8192, (128, 256)))],
+    *[(n, n, n, "float32", "ffma", (128, 128)) for n in (1024, 4096, 8192)],
+    (4096, 768, 768, "bfloat16", "wgmma", (128, 128)),
+    (4096, 256, 768, "bfloat16", "wgmma", (64, 128)),
+    (4096, 2048, 768, "bfloat16", "wgmma", (128, 256)),
+    (4096, 768, 2048, "float16", "wgmma", (128, 128)),
+    (4096, 32000, 768, "bfloat16", "wgmma", (128, 256)),
+    (4096, 32000, 768, "float32", "ffma", (128, 128)),
+    (72, 120, 200, "bfloat16", "wgmma", (64, 128)),
+    (1, 128, 512, "float16", "wgmma", (64, 128)),
+    (384, 640, 1024, "bfloat16", "wgmma", (64, 128)),
+    (128, 128, 301, "bfloat16", "mma_sync", (128, 128)),
+    (100, 100, 100, "float16", "mma_sync", (128, 128)),
+    (256, 100, 512, "bfloat16", "mma_sync", (128, 128)),
+    (100, 100, 100, "float32", "ffma", (128, 128)),
+]
+
+
+@pytest.mark.parametrize("case", VARIANT_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}-{c[3]}")
+def test_variant_for_picks_by_dtype_alignment_and_size(case):
+    M, N, K, dtype, variant, tile = case
+    a = torch.empty((M, K), dtype=TD[dtype])
+    b = torch.empty((K, N), dtype=TD[dtype])
+    out = torch.empty((M, N), dtype=TD[dtype])
+    assert mk.variant_for(a, b, out) == (variant, tile)
+    if variant == "wgmma":
+        assert mk.wgmma_tile(M, N, K) == tile
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_variant_for_sends_unaligned_views_to_mma_sync(dtype):
+    """A contiguous view whose rows start 2 bytes off 16: TMA cannot
+    address it, whatever K and N are."""
+    flat = torch.empty(256 * 512 + 8, dtype=TD[dtype])
+    a = flat[1:1 + 256 * 512].view(256, 512)
+    b = torch.empty((512, 256), dtype=TD[dtype])
+    out = torch.empty((256, 256), dtype=TD[dtype])
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    assert mk.variant_for(a, b, out) == ("mma_sync", (128, 128))
+    assert mk.variant_for(flat[8:].view(256, 512), b, out)[0] == "wgmma"
+
+
+@pytest.mark.parametrize("mnk", [(1, 1, 1), (64, 128, 8), (8448, 8448, 64),
+                                 (128 * 128, 128, 8), (10**6, 8, 8)])
+def test_wgmma_tile_fills_the_card_with_the_largest_tile(mnk):
+    """The largest tile with at least FILL_TILES tiles, else the smallest;
+    a pure function of the shape."""
+    M, N, K = mnk
+    tile = mk.wgmma_tile(M, N, K)
+    assert tile in mk.WGMMA_TILES
+    count = lambda t: -(-M // t[0]) * -(-N // t[1])  # noqa: E731
+    larger = mk.WGMMA_TILES[:mk.WGMMA_TILES.index(tile)]
+    assert all(count(t) < mk.FILL_TILES for t in larger)
+    assert count(tile) >= mk.FILL_TILES or tile == mk.WGMMA_TILES[-1]
+    assert mk.wgmma_tile(M, N, K) == mk.wgmma_tile(M, N, K + 8)
+
+
+@pytest.mark.parametrize("dtype,variant", [("float32", "wgmma"),
+                                           ("float32", "mma_sync"),
+                                           ("bfloat16", "ffma"),
+                                           ("float16", "ffma"),
+                                           ("bfloat16", "tf32")])
+def test_launch_refuses_a_variant_that_does_not_take_the_dtype(dtype,
+                                                               variant):
+    a = torch.ones((128, 128), dtype=TD[dtype])
+    with pytest.raises(ValueError, match="variant|does not take"):
+        mk._launch(a, a, variant)
+
+
+def test_launch_counters_start_per_variant():
+    assert set(mk.launches_by_variant) == set(mk.VARIANTS) == {
+        "ffma", "mma_sync", "wgmma"}
+    assert all(isinstance(n, int) for n in mk.launches_by_variant.values())
