@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.roofline.hw import H100, H100_PEAK_F32_FLOPS
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 256):
@@ -42,3 +43,18 @@ def ssd_cost(b: int, l: int, h: int, p: int, n: int, chunk: int,
              + b * nc * h * pairs * p * 2      # M·(x·dt)
              + 2 * b * nc * h * chunk * p * n * 2)   # states, y_off
     return nbytes, flops
+
+
+def ssd_bound(b: int, l: int, h: int, p: int, n: int, chunk: int,
+              in_bytes: int, variant: str) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time an H100 could take for
+    the call, the larger of :func:`ssd_cost`'s bytes at the card's memory
+    rate and its operations at the peak of the units ``variant`` runs them
+    on: the bf16 tensor cores for ``mma_sync``, the float32 CUDA cores for
+    ``ffma`` (figures from :mod:`repro_torch.roofline.hw`, at 700 W)."""
+    peak = {"mma_sync": H100.peak_bf16_flops,
+            "ffma": H100_PEAK_F32_FLOPS}[variant]
+    nbytes, flops = ssd_cost(b, l, h, p, n, chunk, in_bytes)
+    bytes_ms, ops_ms = nbytes / H100.hbm_bw * 1e3, flops / peak * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"

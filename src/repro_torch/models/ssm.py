@@ -3,7 +3,9 @@
 Counterpart of ``repro.models.ssm``. Train and prefill use the chunked dual
 form; decode is the O(1)-state recurrent update. ``mamba2_forward`` reaches
 the SSD through :class:`SSDFunction`: on CUDA its forward pass launches the
-hand-written ``ssd_scan`` kernel (float32 products throughout), on the CPU
+hand-written ``ssd_scan`` kernel (bf16 inputs: products on the tensor
+cores, rounded to bf16 where :func:`ssd_chunked` rounds plus once more in
+the chunk states; float32 inputs: float32 products throughout), on the CPU
 it runs :func:`ssd_chunked`, which rounds to the model dtype where the
 reference rounds. Its backward pass recomputes the chunked dual form in
 float32 and differentiates that, on both devices.
@@ -175,9 +177,12 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 class SSDFunction(torch.autograd.Function):
     """The SSD of one layer: ``(y, final_state) = ssd(x, dt, A, B, C)``.
 
-    Forward: on CUDA the ``ssd_scan`` kernel (float32 products; the
-    sequence is padded to a chunk multiple with dt = 0 steps, as
-    :func:`ssd_chunked` pads, and the padded outputs dropped); on the CPU
+    Forward: on CUDA the ``ssd_scan`` kernel (its ``mma_sync`` variant for
+    bf16 inputs, bf16 products on the tensor cores rounded as
+    ``kernels.ssd_scan.ref.ssd_chunked_tc`` rounds; its ``ffma`` variant,
+    float32 products, for float32 inputs; the sequence is padded to a chunk
+    multiple with dt = 0 steps, as :func:`ssd_chunked` pads, and the padded
+    outputs dropped); on the CPU
     :func:`ssd_chunked`, the reference model's own form. Backward, on both
     devices: the chunked dual form recomputed in float32 and differentiated
     (the reference has no backward kernel either: XLA differentiates its

@@ -17,7 +17,7 @@ from repro_torch.kernels.allreduce_combine.ref import combine_ref
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.flash_decode.ref import decode_attention_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_tc, ssd_ref
 
 # (B, H, K, dk, dv, S): the reference's kernel test shapes, then the serving
 # shape of exanest-lm-100m at a window S that is no multiple of a pass
@@ -104,34 +104,108 @@ def test_combine_unaligned_view_nan_and_int32_on_card(cuda_device):
 # slice of mamba2-2.7b's layer (80 heads of 64, d_state 128, chunk 256)
 SSD_SHAPES = [(2, 128, 8, 16, 16, 32), (1, 256, 4, 32, 64, 64),
               (2, 64, 16, 16, 32, 64), (1, 512, 80, 64, 128, 256)]
+# the edge shapes of the tensor-core variant: chunk 64, 128 and 256; p 16,
+# 32 and 64; n 16, 32, 64 and 128; h = 12, which the head group of 8 does
+# not divide; l equal to one chunk
+SSD_EDGE_SHAPES = [(1, 64, 12, 16, 16, 64), (1, 256, 12, 32, 32, 128),
+                   (1, 256, 12, 64, 64, 256), (2, 512, 12, 64, 128, 256),
+                   (1, 384, 8, 16, 128, 128), (1, 128, 12, 64, 16, 64)]
+# mma_sync against ssd_chunked_tc, as max|got - want| / max|want| over y and
+# over the final state: both round at the same places; the cumsum's order
+# and exp differ by a few float32 ulps, which now and then flips the bf16
+# rounding of an M, decay or entering-state element: one bf16 ulp of that
+# element times its partner, up to ~1e-2 of the largest |y| for one flip
+# with N(0, 1) inputs (|C.B| ~40, |x dt| ~3). Measured on the card: at most
+# 2.5e-3 (chip_smoke.py's ref-shape-3, H100 80GB HBM3 at 700 W)
+SSD_TC_TIGHT = 1e-2
+
+
+def _ssd_case(b, l, h, p, n, dtype, device, seed, dt_scale=None):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, l, h, p), np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, l, h), np.float32)))
+    if dt_scale is not None:
+        dt = torch.full_like(dt, dt_scale)
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(
+        np.float32)) * 0.3)
+    B, C = (torch.from_numpy(rng.standard_normal((b, l, 1, n), np.float32))
+            for _ in range(2))
+    x, B, C = (t.to(device, dtype) for t in (x, B, C))
+    return x, dt.to(device), A.to(device), B, C
+
+
+def _ssd_close(got, want, tol):
+    # the reference's kernel tolerances (tests/test_kernels.py): f32
+    # summation order; bf16 inputs
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=tol, atol=tol * 10)
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SSD_SHAPES)
 def test_ssd_scan_matches_plain_on_card(shape, dtype, cuda_device):
+    """The entry point: f32 through ffma against ssd_ref at 1e-4; bf16
+    through mma_sync against ssd_ref at the reference's 6e-2 and against
+    ssd_chunked_tc tightly."""
     b, l, h, p, n, chunk = shape
-    rng = np.random.default_rng(13)
-    x = torch.from_numpy(rng.standard_normal((b, l, h, p), np.float32))
-    dt = torch.nn.functional.softplus(torch.from_numpy(
-        rng.standard_normal((b, l, h), np.float32)))
-    A = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(
-        np.float32)) * 0.3)
-    B, C = (torch.from_numpy(rng.standard_normal((b, l, 1, n), np.float32))
-            for _ in range(2))
-    x, B, C = (t.to(cuda_device, dtype) for t in (x, B, C))
-    dt, A = dt.to(cuda_device), A.to(cuda_device)
+    x, dt, A, B, C = _ssd_case(b, l, h, p, n, dtype, cuda_device, 13)
     before = ssd_kernel.launches
+    by_variant = dict(ssd_kernel.launches_by_variant)
     y, st = ssd_kernel.ssd_scan(x, dt, A, B, C, chunk=chunk)
     y_r, st_r = ssd_ref(x, dt, A, B, C)
     torch.cuda.synchronize()
     assert ssd_kernel.launches == before + 1
-    # the reference's kernel tolerances (tests/test_kernels.py): f32
-    # summation order; bf16 inputs
-    tol = 1e-4 if dtype == torch.float32 else 6e-2
-    for got, want in ((y, y_r), (st, st_r)):
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=tol, atol=tol * 10)
+    variant = "ffma" if dtype == torch.float32 else "mma_sync"
+    assert ssd_kernel.launches_by_variant[variant] == by_variant[variant] + 1
+    _ssd_close((y, st), (y_r, st_r), 1e-4 if dtype == torch.float32 else 6e-2)
+    if dtype == torch.bfloat16:
+        y_t, st_t = ssd_chunked_tc(x, dt, A, B, C, chunk)
+        assert _rel(y, y_t) <= SSD_TC_TIGHT and _rel(st, st_t) <= SSD_TC_TIGHT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt_scale", [None, 5.0, 1e-4])
+@pytest.mark.parametrize("shape", SSD_EDGE_SHAPES)
+def test_ssd_scan_tensor_core_edges_on_card(shape, dt_scale, cuda_device):
+    """mma_sync at its edge shapes, dt as drawn, as strong decay (dt = 5)
+    and near 0 (dt = 1e-4): against ssd_ref at the reference's bf16
+    tolerance and against ssd_chunked_tc tightly."""
+    b, l, h, p, n, chunk = shape
+    x, dt, A, B, C = _ssd_case(b, l, h, p, n, torch.bfloat16, cuda_device,
+                               17, dt_scale)
+    assert ssd_kernel.variant_for(x.dtype, p, n, chunk) == "mma_sync"
+    before = ssd_kernel.launches_by_variant["mma_sync"]
+    y, st = ssd_kernel.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    y_r, st_r = ssd_ref(x, dt, A, B, C)
+    y_t, st_t = ssd_chunked_tc(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches_by_variant["mma_sync"] == before + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    _ssd_close((y, st), (y_r, st_r), 6e-2)
+    assert _rel(y, y_t) <= SSD_TC_TIGHT and _rel(st, st_t) <= SSD_TC_TIGHT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES[1:] + SSD_EDGE_SHAPES[:2])
+def test_ssd_scan_ffma_on_bf16_on_card(shape, cuda_device):
+    """The ffma variant run through _launch on bf16 inputs (the same-run
+    comparison): float32 products of the widened inputs, so against ssd_ref
+    at the reference's float32 tolerance."""
+    b, l, h, p, n, chunk = shape
+    x, dt, A, B, C = _ssd_case(b, l, h, p, n, torch.bfloat16, cuda_device, 19)
+    before = ssd_kernel.launches_by_variant["ffma"]
+    got = ssd_kernel._launch(x, dt, A, B, C, chunk=chunk, variant="ffma")
+    want = ssd_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches_by_variant["ffma"] == before + 1
+    _ssd_close(got, want, 1e-4)
 
 
 # (M, N, K, bk): the reference's matmul test shapes (bk 128), one
