@@ -19,10 +19,25 @@ from repro_torch.kernels.flash_decode.ref import decode_attention_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_tc, ssd_ref
 
-# (B, H, K, dk, dv, S): the reference's kernel test shapes, then the serving
-# shape of exanest-lm-100m at a window S that is no multiple of a pass
+# (B, H, K, dk, dv, S): the reference's kernel test shapes, the serving
+# shape of exanest-lm-100m at a window S that is no multiple of a span, and
+# zamba2-2.7b's shared attention (MHA, head dim 80)
 SHAPES = [(2, 8, 2, 64, 64, 512), (1, 4, 4, 128, 128, 1024),
-          (2, 8, 1, 64, 128, 256), (8, 12, 4, 64, 64, 1000)]
+          (2, 8, 1, 64, 128, 256), (8, 12, 4, 64, 64, 1000),
+          (2, 32, 32, 80, 80, 1024)]
+
+
+#: flash_decode against its plain version, (rtol, atol): f32 differs by
+#: summation order only; bf16 by at most one step of the bf16 output (2^-7
+#: of it) where the two float32 results round apart
+FD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+
+
+def _fd_close(got, want):
+    rtol, atol = FD_TOL[want.dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.fixture
@@ -50,10 +65,134 @@ def test_flash_decode_matches_plain_on_card(shape, dtype, cuda_device):
     want = decode_attention_ref(q, k, v, lengths)
     torch.cuda.synchronize()
     assert fd_kernel.launches == before + 1
-    # f32: summation order only; bf16: the reference's kernel tolerance
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    _fd_close(got, want)
+
+
+def _fd_case(B, H, K, dk, dv, S, dtype, device, seed):
+    """q, k, v; ragged lengths with 1 and S; NaN past each row's length in
+    the caches the kernel gets (kp, vp), not in those the reference gets."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(device, dtype)
+               for s in ((B, H, dk), (B, S, K, dk), (B, S, K, dv)))
+    lengths = rng.integers(1, S + 1, B).astype(np.int32)
+    lengths[0], lengths[-1] = 1, S
+    lengths = torch.from_numpy(lengths).to(device)
+    dead = (torch.arange(S, device=device)[None, :]
+            >= lengths[:, None].long())[:, :, None, None]
+    return (q, k, v, k.masked_fill(dead, float("nan")),
+            v.masked_fill(dead, float("nan")), lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 12, 4, 64, 64, 2048),
+                                   (3, 36, 4, 128, 128, 300),
+                                   (2, 32, 2, 64, 128, 700)])
+def test_flash_decode_is_deterministic_and_ignores_dead_rows_on_card(
+        shape, dtype, cuda_device):
+    """Two calls give the same bits (the partials merge in a fixed order,
+    whichever CTA comes last), and NaN past each row's length never reaches
+    the output (rep 3, 9 in two tiles, 16 in two tiles)."""
+    q, k, v, kp, vp, lengths = _fd_case(*shape, dtype, cuda_device, 11)
+    got = fd_kernel.flash_decode(q, kp, vp, lengths)
+    again = fd_kernel.flash_decode(q, kp, vp, lengths)
+    want = decode_attention_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _fd_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_merges_a_unit_in_several_passes_on_card(dtype,
+                                                              cuda_device):
+    """A row of 32768 positions on one kv head: more CTAs share its unit
+    than one pass of the merge stages, so the running max and sum carry
+    across passes."""
+    B, H, K, dk, dv, S = 2, 8, 1, 128, 128, 32768
+    q, k, v, kp, vp, lengths = _fd_case(B, H, K, dk, dv, S, dtype,
+                                        cuda_device, 12)
+    n_ctas = fd_kernel._grid(cuda_device.index or 0,
+                             fd_kernel._DTYPE_CODE[dtype], dk, dv, B, K,
+                             H // K, S)
+    segs = fd_kernel.schedule(lengths.tolist(), B, K, 1, n_ctas)
+    ctas_of_long_row = sum(seg[1] == B - 1 for seg in segs)
+    assert ctas_of_long_row > fd_kernel.merge_chunk(dtype, dk, dv, H // K)
+    got = fd_kernel.flash_decode(q, kp, vp, lengths)
+    again = fd_kernel.flash_decode(q, kp, vp, lengths)
+    want = decode_attention_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _fd_close(got, want)
+
+
+def _static_inputs(case):
+    static = [torch.empty_like(t) for t in (case[0], case[3], case[4],
+                                            case[5])]
+
+    def load(case):
+        for dst, src in zip(static, (case[0], case[3], case[4], case[5])):
+            dst.copy_(src)
+
+    load(case)
+    return static, load
+
+
+@pytest.mark.cuda
+def test_flash_decode_replays_in_a_cuda_graph_on_card(cuda_device):
+    """Two graphs captured on one stream, after one eager call there made
+    its tickets (so no zeroing is captured), replayed in turns with an eager
+    call on that stream between and other q, caches and lengths copied in:
+    each output matches the plain version, so every launch set its tickets
+    back to 0 and no length was read on the host."""
+    shape = (8, 12, 4, 64, 64, 2048)
+    cases = [_fd_case(*shape, torch.bfloat16, cuda_device, 30 + i)
+             for i in range(2)]
+    static, load = _static_inputs(cases[0])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fd_kernel.flash_decode(*static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graphs, outs = [], []
+    for _ in range(2):
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1], stream=stream):
+            outs.append(fd_kernel.flash_decode(*static))
+    for what, i in ((1, 1), (0, 0), ("eager", 1), (0, 1), (1, 0)):
+        q, k, v, _, _, lengths = cases[i]
+        load(cases[i])
+        torch.cuda.synchronize()
+        if what == "eager":
+            with torch.cuda.stream(stream):
+                out = fd_kernel.flash_decode(*static)
+        else:
+            graphs[what].replay()
+            out = outs[what]
+        want = decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        _fd_close(out, want)
+
+
+@pytest.mark.cuda
+def test_flash_decode_refuses_capture_on_a_stream_without_buffers_on_card(
+        cuda_device):
+    """A stream's tickets are made outside capture only: capturing on a
+    stream that never ran the kernel raises instead of capturing their
+    zeroing into the graph."""
+    case = _fd_case(8, 12, 4, 64, 64, 2048, torch.bfloat16, cuda_device, 32)
+    static, _ = _static_inputs(case)
+    fd_kernel.flash_decode(*static)       # the shapes' grid is known
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    # torch hands out pooled streams: retire what this one may hold already
+    key = (cuda_device.index or 0, stream.cuda_stream)
+    fd_kernel._retired.extend(fd_kernel._stream_buffers.pop(key, ()))
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="outside capture"):
+        with torch.cuda.graph(graph, stream=stream):
+            fd_kernel.flash_decode(*static)
 
 
 # (P, L): the reference's combine test shapes, the sync's intra reduce of a
