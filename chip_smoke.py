@@ -132,7 +132,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             (forward + recompute) times per step, all through mma_sync;
             reports ms per step, tokens/s, peak memory.
 13. ssm_train_profile  2 of those steps under torch.profiler: device
-            busy, kernels per step, top kernels, ssd_scan's share.
+            busy, kernels per step, top kernels, ssd_scan's share and
+            device ms per launch.
 14. ssm_decode  prefill of 2 x 1023 tokens (a ragged length, through the
             kernel), one decode_step of token 1024 from its states, against
             the last logits of the full 1024-token prefill: in the model's
@@ -140,6 +141,30 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             tests/test_models_smoke.py::test_ssm_decode_matches_prefill),
             and in bf16 within the bf16 prefill's own distance from the
             float32 one, plus 3e-2.
+15. hybrid_train  full-width zamba2-2.7b (HybridLM: 54 Mamba-2 layers of
+            d_state 64 in 9 groups of 6, each group followed by the one
+            shared attention + gated-GELU block, 32 heads of 80; bf16,
+            random weights from torch.Generator seed 0, built by
+            Trainer.init_state, after the Mamba-2 model is freed): ssd_scan
+            at the hybrid's layer shape from its first layer's real inputs
+            (mma_sync against ssd_chunked_tc and the float32 form, ffma
+            against the float32 form, SSD_FULL_TOL), then ssm_train's run
+            and gates on it: 2 x 4096, 20 steps, the held-out drop, ssd_scan
+            launched 54 x (forward + recompute) = 108 times per step, all
+            mma_sync; ms per step, tokens/s, peak memory.
+16. hybrid_train_profile  2 steps under torch.profiler (device busy, top
+            kernels, ssd_scan's share and device ms per launch beside its
+            bound at the hybrid's layer shape) and the plain
+            flash_attention's share of a step at head dim 80, timed alone
+            (9 uses x forward, recompute and backward).
+17. hybrid_decode  prefill of 2 x 1023 tokens, the caches copied into a
+            1024 window, one decode_step of token 1024 against the last
+            logits of the full 1024-token prefill, gated as ssm_decode;
+            flash_decode's (80, 80) instance launched 9 times (once per
+            group) per decode_step in bf16 and in float32, ssd_scan in the
+            prefills by variant (mma_sync in bf16, ffma in float32), and
+            the kernel against its plain version at FD_TOL on group 0's own
+            bf16 cache (one row at 1024, one at 613).
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -152,6 +177,7 @@ import concurrent.futures
 import dataclasses
 import datetime
 import functools
+import gc
 import hashlib
 import json
 import re
@@ -1247,18 +1273,15 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
 
 
 # ---------------------------------------------------------- Mamba-2 phases
-def layer_ssd_inputs(model, params, tokens):
-    """Layer 0's (x, dt, A, B, C) on ``tokens``, as mamba2_forward makes
-    them: embedding, ln1, projections, causal convs, softplus."""
-    from repro_torch import tree as tree_util
+def layer_ssd_inputs(cfg, embed, layer, tokens):
+    """The (x, dt, A, B, C) of the first Mamba-2 ``layer`` (its parameter
+    tree) on ``tokens``, as mamba2_forward makes them: embedding, ln1,
+    projections, causal convs, softplus."""
     from repro_torch.models import ssm
     from repro_torch.models.layers import apply_norm, embed_tokens
-    cfg = model.cfg
     s, d_in, nh, _ = ssm._dims(cfg)
-    layer = tree_util.tree_map(lambda t: t[0], params["stack"])
     with torch.no_grad():
-        h = apply_norm(layer["ln1"], embed_tokens(params["embed"], tokens,
-                                                  cfg), cfg)
+        h = apply_norm(layer["ln1"], embed_tokens(embed, tokens, cfg), cfg)
         _, xc, Bc, Cc, dtr, _ = ssm._project(layer["ssm"], h, cfg)
         Bsz, L = tokens.shape
         x = xc.reshape(Bsz, L, nh, s.head_dim).contiguous()
@@ -1360,7 +1383,10 @@ def ssd_checks(model, params, tokens) -> tuple[list[dict], tuple]:
         if not ok:
             fail(f"the route disagrees at l=1000 {dtype}: excess {excess}")
     # full width, from layer 0's real inputs on the train batch
-    x, dt, A, B, C = layer_ssd_inputs(model, params, tokens)
+    from repro_torch import tree as tree_util
+    x, dt, A, B, C = layer_ssd_inputs(
+        model.cfg, params["embed"],
+        tree_util.tree_map(lambda t: t[0], params["stack"]), tokens)
     chunk = model.cfg.ssm.chunk
     before = sk.launches_by_variant["mma_sync"]
     outs = {"mma_sync": ssm.ssd(x, dt, A, B, C, chunk)}
@@ -1397,6 +1423,146 @@ def ssd_checks(model, params, tokens) -> tuple[list[dict], tuple]:
         del y_c, st_c
     del outs
     return results, (x, dt, A, B, C)
+
+
+def ssd_train_phase(phase: str, model, state, step_fn, data, smi: str,
+                    **extra) -> dict:
+    """SSM_TRAIN's steps of ``step_fn`` on a Mamba-2 model (the ssm_train
+    and hybrid_train phases): every loss finite, the mean loss of the
+    held-out batches falling by min_drop, and ssd_scan launched (forward +
+    recompute) once a layer each per step, all through mma_sync, counted
+    from 0 over the steps. ``state`` (the train state dict) advances in
+    place: its entries are replaced each step, so no reference to an
+    earlier step's parameters or moments outlives it. Emits the phase's
+    line (with ``extra``) and returns it."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    cfg = model.cfg
+    held = [data.batch_at(i) for i in range(*SSM_TRAIN["eval_steps"])]
+
+    def held_loss(params):
+        with torch.no_grad():
+            return [float(model.loss_fn(params, b)) for b in held]
+
+    held_before = held_loss(state["params"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    sk.launches_by_variant.update(dict.fromkeys(sk.launches_by_variant, 0))
+    losses, walls, per_step = [], [], []
+    t_run = time.perf_counter()
+    for i in range(SSM_TRAIN["steps"]):
+        before = sk.launches
+        t = time.perf_counter()
+        new, metrics = step_fn(state, data.batch_at(i))
+        state.update(new)
+        del new
+        losses.append(float(metrics["loss"]))       # waits for the step
+        walls.append(time.perf_counter() - t)
+        per_step.append(sk.launches - before)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    train_launches = sk.launches
+    train_by_variant = dict(sk.launches_by_variant)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held_after = held_loss(state["params"])
+    drop = float(np.mean(held_before) - np.mean(held_after))
+    steady_ms = float(np.mean(walls[1:])) * 1e3
+    tokens = SSM_TRAIN["batch"] * SSM_TRAIN["seq"]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    want = 2 * cfg.n_layers
+    line = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+            "params": sum(t.numel() for t in
+                          tree_util.leaves(state["params"])),
+            "entry": "Trainer.make_step", **SSM_TRAIN, "losses": losses,
+            "first5_mean": first5, "last5_mean": last5,
+            "held_out_losses_before": held_before,
+            "held_out_losses_after": held_after, "held_out_mean_drop": drop,
+            "threshold": f"held_out_mean_drop >= {SSM_TRAIN['min_drop']}",
+            "wall_s": run_s, "step_wall_ms": [w * 1e3 for w in walls],
+            "ms_per_step_wall": steady_ms,
+            "tok_per_s": tokens / (steady_ms / 1e3), "peak_mem_GB": peak_gb,
+            "ssd_scan_launches": train_launches,
+            "ssd_scan_launches_per_step": per_step,
+            "ssd_scan_launches_by_variant": train_by_variant,
+            "expected_per_step": f"{cfg.n_layers} layers x (forward + "
+                                 f"recompute) = {want}, all mma_sync",
+            **extra, "card": smi}
+    emit(line)
+    if any(n_ != want for n_ in per_step):
+        raise AssertionError(f"ssd_scan launched {per_step} times per step; "
+                             f"expected {want}")
+    if train_by_variant != {"ffma": 0, "mma_sync": train_launches}:
+        raise AssertionError(f"ssd_scan ran {train_by_variant} in training; "
+                             "expected every launch through mma_sync")
+    if not all(np.isfinite(losses + held_before + held_after)):
+        raise AssertionError(f"a {phase} loss is not finite: {losses}, "
+                             f"held-out {held_before} -> {held_after}")
+    if not drop >= SSM_TRAIN["min_drop"]:
+        raise AssertionError(f"the {phase} loss did not fall: held-out "
+                             f"batches {held_before} -> {held_after}")
+    return line
+
+
+def ssd_train_profile(phase: str, state, step_fn, data, acts,
+                      steady_ms: float, ssd_launches: int, smi: str,
+                      **extra) -> None:
+    """2 more train steps under torch.profiler, ``state`` advanced in
+    place as in :func:`ssd_train_phase`: device busy against wall,
+    kernels per step, the top kernels and ssd_scan's share, and its device
+    time per launch over the ``ssd_launches`` a step makes. Emits the
+    phase's line (with ``extra``)."""
+    n_prof = 2
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            state.update(step_fn(state, data.batch_at(100 + i))[0])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernels = device_kernels(prof, n_prof)
+    del prof
+    busy = sum(ms for _, ms, _ in kernels)
+    ssd_ms = sum(ms for name, ms, _ in kernels if "ssd_" in name)
+    wall_ms = prof_wall / n_prof * 1e3
+    line = {"phase": phase, "steps": n_prof,
+            "ms_per_step_wall_profiled": wall_ms,
+            "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall_ms,
+            "idle_share_vs_unprofiled_wall": 1 - busy / steady_ms,
+            "kernels_per_step": sum(n_ for *_, n_ in kernels),
+            "ssd_scan_ms_per_step": ssd_ms,
+            "ssd_scan_share_of_busy": ssd_ms / busy,
+            "ssd_scan_ms_per_launch": ssd_ms / ssd_launches,
+            "top": [[name[:80], ms, n_] for name, ms, n_ in kernels[:12]],
+            **extra, "card": smi}
+    emit(line)
+
+
+def decode_readings(full16, lg16, full32, lg32) -> tuple[bool, dict]:
+    """The decode-against-prefill gate of the ssm_decode and hybrid_decode
+    phases, on the last logits of a full prefill (``full*``) and of a
+    decode step after a prefill one token shorter (``lg*``), in bf16 and in
+    the float32 twin: float32 within 3e-2 (rtol and atol, as
+    tests/test_models_smoke.py); bf16 within the bf16 prefill's own
+    distance from the float32 one, plus 3e-2. Returns (ok, readings)."""
+    err32 = (lg32 - full32).abs().max().item()
+    excess32 = ((lg32 - full32).abs() - 3e-2 * full32.abs()).max().item()
+    noise16 = (full16 - full32).abs().max().item()
+    err16 = (lg16 - full16).abs().max().item()
+    ok = (bool(torch.isfinite(lg16).all().item())
+          and bool(torch.isfinite(lg32).all().item())
+          and excess32 <= 3e-2 and err16 <= noise16 + 3e-2)
+    return ok, {
+        "float32": {"max_abs_err": err32, "excess_over_rtol": excess32,
+                    "rtol": 3e-2, "atol": 3e-2,
+                    "max_abs_logit": full32.abs().max().item()},
+        "bfloat16": {"decode_vs_own_prefill_max_abs": err16,
+                     "decode_vs_own_prefill_mean_abs":
+                         (lg16 - full16).abs().mean().item(),
+                     "prefill_vs_float32_max_abs": noise16,
+                     "decode_vs_float32_max_abs":
+                         (lg16 - full32).abs().max().item(),
+                     "limit": "decode_vs_own_prefill <= "
+                              "prefill_vs_float32 + 3e-2"}}
 
 
 def ssm_phases(smi: str, acts) -> dict:
@@ -1506,87 +1672,13 @@ def ssm_phases(smi: str, acts) -> dict:
 
     # ------------------------------------------------------- 12. ssm_train
     step_fn = tr.make_step()
-    held = [data.batch_at(i) for i in range(*SSM_TRAIN["eval_steps"])]
-
-    def held_loss(params):
-        with torch.no_grad():
-            return [float(model.loss_fn(params, b)) for b in held]
-
-    held_before = held_loss(state["params"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    sk.launches = 0
-    sk.launches_by_variant.update(dict.fromkeys(sk.launches_by_variant, 0))
-    losses, walls, per_step = [], [], []
-    t_run = time.perf_counter()
-    for i in range(SSM_TRAIN["steps"]):
-        before = sk.launches
-        t = time.perf_counter()
-        state, metrics = step_fn(state, data.batch_at(i))
-        losses.append(float(metrics["loss"]))       # waits for the step
-        walls.append(time.perf_counter() - t)
-        per_step.append(sk.launches - before)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t_run
-    train_launches = sk.launches
-    train_by_variant = dict(sk.launches_by_variant)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    held_after = held_loss(state["params"])
-    drop = float(np.mean(held_before) - np.mean(held_after))
-    steady_ms = float(np.mean(walls[1:])) * 1e3
-    tokens = SSM_TRAIN["batch"] * SSM_TRAIN["seq"]
-    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    want = 2 * cfg.n_layers
-    emit({"phase": "ssm_train", "arch": cfg.name, "dtype": cfg.dtype,
-          "entry": "Trainer.make_step", **SSM_TRAIN, "losses": losses,
-          "first5_mean": first5, "last5_mean": last5,
-          "held_out_losses_before": held_before,
-          "held_out_losses_after": held_after, "held_out_mean_drop": drop,
-          "threshold": f"held_out_mean_drop >= {SSM_TRAIN['min_drop']}",
-          "wall_s": run_s, "step_wall_ms": [w * 1e3 for w in walls],
-          "ms_per_step_wall": steady_ms,
-          "tok_per_s": tokens / (steady_ms / 1e3), "peak_mem_GB": peak_gb,
-          "ssd_scan_launches": train_launches,
-          "ssd_scan_launches_per_step": per_step,
-          "ssd_scan_launches_by_variant": train_by_variant,
-          "expected_per_step": f"{cfg.n_layers} layers x (forward + "
-                               f"recompute) = {want}, all mma_sync",
-          "card": smi})
-    if any(n_ != want for n_ in per_step):
-        raise AssertionError(f"ssd_scan launched {per_step} times per step; "
-                             f"expected {want}")
-    if train_by_variant != {"ffma": 0, "mma_sync": train_launches}:
-        raise AssertionError(f"ssd_scan ran {train_by_variant} in training; "
-                             "expected every launch through mma_sync")
-    if not all(np.isfinite(losses + held_before + held_after)):
-        raise AssertionError(f"an ssm train loss is not finite: {losses}, "
-                             f"held-out {held_before} -> {held_after}")
-    if not drop >= SSM_TRAIN["min_drop"]:
-        raise AssertionError(f"the ssm loss did not fall: held-out batches "
-                             f"{held_before} -> {held_after}")
+    train = ssd_train_phase("ssm_train", model, state, step_fn, data, smi)
+    train_launches = train["ssd_scan_launches"]
+    train_by_variant = train["ssd_scan_launches_by_variant"]
 
     # ----------------------------------------------- 13. ssm_train_profile
-    n_prof = 2
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for i in range(n_prof):
-            state, metrics = step_fn(state, data.batch_at(100 + i))
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    kernels = device_kernels(prof, n_prof)
-    busy = sum(ms for _, ms, _ in kernels)
-    ssd_ms = sum(ms for name, ms, _ in kernels if "ssd_" in name)
-    wall_ms = prof_wall / n_prof * 1e3
-    emit({"phase": "ssm_train_profile", "steps": n_prof,
-          "ms_per_step_wall_profiled": wall_ms,
-          "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall_ms,
-          "idle_share_vs_unprofiled_wall": 1 - busy / steady_ms,
-          "kernels_per_step": sum(n_ for *_, n_ in kernels),
-          "ssd_scan_ms_per_step": ssd_ms,
-          "ssd_scan_share_of_busy": ssd_ms / busy,
-          "top": [[name[:80], ms, n_] for name, ms, n_ in kernels[:12]],
-          "card": smi})
-    del prof
+    ssd_train_profile("ssm_train_profile", state, step_fn, data, acts,
+                      train["ms_per_step_wall"], 2 * cfg.n_layers, smi)
 
     # ------------------------------------------------------ 14. ssm_decode
     # the model in bf16 and its float32 twin on the same weights (bf16
@@ -1620,37 +1712,19 @@ def ssm_phases(smi: str, acts) -> dict:
     prefill_launches = sk.launches - before
     prefill_by_variant = {k: v - by_variant[k]
                           for k, v in sk.launches_by_variant.items()}
-    err32 = (lg32 - full32).abs().max().item()
-    excess32 = ((lg32 - full32).abs() - 3e-2 * full32.abs()).max().item()
-    noise16 = (full16 - full32).abs().max().item()
-    err16 = (lg16 - full16).abs().max().item()
-    ok = (bool(torch.isfinite(lg16).all().item())
-          and bool(torch.isfinite(lg32).all().item())
-          and excess32 <= 3e-2 and err16 <= noise16 + 3e-2
-          and prefill_launches == 4 * cfg.n_layers
+    agree, readings = decode_readings(full16, lg16, full32, lg32)
+    ok = (agree and prefill_launches == 4 * cfg.n_layers
           and prefill_by_variant == {"ffma": 2 * cfg.n_layers,
                                      "mma_sync": 2 * cfg.n_layers})
     emit({"phase": "ssm_decode", "arch": cfg.name, "batch": 2,
-          "prefill_len": 1023, "full_len": 1024,
-          "float32": {"max_abs_err": err32, "excess_over_rtol": excess32,
-                      "rtol": 3e-2, "atol": 3e-2,
-                      "max_abs_logit": full32.abs().max().item()},
-          "bfloat16": {"decode_vs_own_prefill_max_abs": err16,
-                       "decode_vs_own_prefill_mean_abs":
-                           (lg16 - full16).abs().mean().item(),
-                       "prefill_vs_float32_max_abs": noise16,
-                       "decode_vs_float32_max_abs":
-                           (lg16 - full32).abs().max().item(),
-                       "limit": "decode_vs_own_prefill <= "
-                                "prefill_vs_float32 + 3e-2"},
+          "prefill_len": 1023, "full_len": 1024, **readings,
           "prefill_ssd_launches": prefill_launches,
           "prefill_ssd_launches_by_variant": prefill_by_variant,
           "ok": ok, "card": smi})
     if not ok:
         raise AssertionError(f"ssm decode disagrees with the full prefill: "
-                             f"float32 excess {excess32} > 3e-2, or bf16 "
-                             f"{err16} > {noise16} + 3e-2 (launches "
-                             f"{prefill_launches}, {prefill_by_variant})")
+                             f"{readings} (launches {prefill_launches}, "
+                             f"{prefill_by_variant})")
     del params, params32, full16, full32, lg16, lg32
     torch.cuda.empty_cache()
     return {"name": "ssd_scan", "route": "cuda", "source": SSD_SRC,
@@ -1667,6 +1741,226 @@ def ssm_phases(smi: str, acts) -> dict:
             "ffma_ms": statistics.median(ffma_ms),
             "ffma_bound_ms": ffma_bound_ms,
             "launches_per_train_step": train_launches / SSM_TRAIN["steps"]}
+
+
+def hybrid_ssd_checks(model, params, tokens) -> list[dict]:
+    """ssd_scan at the hybrid's layer shape (h 80, p 64, d_state 64, chunk
+    256), from the first Mamba-2 layer's real inputs on the train batch:
+    mma_sync (the bf16 route) against ssd_chunked_tc and the float32
+    chunked form, ffma (the float32 route) against the float32 form, at
+    SSD_FULL_TOL, asserting the variant each ran."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_tc
+    from repro_torch.models import ssm
+    cfg = model.cfg
+    chunk = cfg.ssm.chunk
+    x, dt, A, B, C = layer_ssd_inputs(
+        cfg, params["embed"],
+        tree_util.tree_map(lambda t: t[0, 0], params["groups"]), tokens)
+    wide = (x.float(), dt, A, B.float(), C.float())
+    forms = {"tc": lambda: ssd_chunked_tc(x, dt, A, B, C, chunk),
+             "float32": lambda: ssm.ssd_chunked(*wide, chunk)}
+    results = []
+    for variant, inputs, against in (("mma_sync", (x, dt, A, B, C),
+                                      ("tc", "float32")),
+                                     ("ffma", wide, ("float32",))):
+        before = dict(sk.launches_by_variant)
+        with torch.no_grad():
+            y, st = ssm.ssd(*inputs, chunk)
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in sk.launches_by_variant.items()}
+        for form in against:
+            y_c, st_c = forms[form]()
+            tol = SSD_FULL_TOL[(variant, form)]
+            rel_y = ((y - y_c).abs().max() / y_c.abs().max()).item()
+            rel_st = ((st - st_c).abs().max() / st_c.abs().max()).item()
+            ok = (ran == {k: int(k == variant) for k in ran}
+                  and max(rel_y, rel_st) <= tol)
+            results.append({"case": f"hybrid-layer0-{variant}-vs-{form}",
+                            "shape": list(x.shape) + [B.shape[-1]],
+                            "chunk": chunk, "variant": variant, "ran": ran,
+                            "max_err": (y - y_c).abs().max().item(),
+                            "rel_err_y": rel_y, "rel_err_state": rel_st,
+                            "tol": tol, "ok": ok})
+            if not ok:
+                emit({"phase": "hybrid_train", "ssd_checks": results})
+                raise AssertionError(f"ssd_scan {variant} at the hybrid's "
+                                     f"shape vs {form}: {rel_y}, {rel_st} > "
+                                     f"{tol}, or ran {ran}")
+            del y_c, st_c
+    return results
+
+
+def hybrid_phases(smi: str, acts) -> dict:
+    """Phases 15-17 on full-width zamba2-2.7b (HybridLM); returns the
+    hybrid's readings of ssd_scan and flash_decode for the kernels line."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ops import decode_attn
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan.ops import ssd_bound
+    from repro_torch.models import HybridLM, build_model, ssm
+    from repro_torch.models.attention import flash_attention
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get("zamba2-2.7b")
+    model = build_model(cfg)
+    if not isinstance(model, HybridLM):
+        raise AssertionError(f"build_model gave {type(model).__name__}")
+    G = model.n_groups
+    tr = Trainer(model, AdamWConfig(lr=SSM_TRAIN["lr"],
+                                    warmup_steps=SSM_TRAIN["warmup"],
+                                    decay_steps=SSM_TRAIN["steps"]),
+                 device="cuda")
+    t0 = time.perf_counter()
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticTokens(cfg, batch=SSM_TRAIN["batch"],
+                           seq=SSM_TRAIN["seq"], seed=0, device="cuda")
+
+    # ---------------------------------------------------- 15. hybrid_train
+    ssd_checks = hybrid_ssd_checks(model, state["params"],
+                                   data.batch_at(0)["tokens"])
+    step_fn = tr.make_step()
+    train = ssd_train_phase("hybrid_train", model, state, step_fn, data,
+                            smi, groups=G, group_size=model.group_size,
+                            init_state_s=init_s, ssd_checks=ssd_checks)
+    ssd_entry = {"path": "hybrid_train",
+                 "launches": train["ssd_scan_launches"],
+                 "launches_per_train_step":
+                     train["ssd_scan_launches"] / SSM_TRAIN["steps"],
+                 "launches_by_variant": train["ssd_scan_launches_by_variant"],
+                 "checks": ssd_checks}
+
+    # -------------------------------------------- 16. hybrid_train_profile
+    # the shared block's attention (plain flash_attention, 32 heads of 80)
+    # timed alone at the step's shape: per use a forward, its recompute in
+    # backward and the backward, times the G uses (wall, host included)
+    B, S = SSM_TRAIN["batch"], SSM_TRAIN["seq"]
+    hd = cfg.resolved_head_dim
+    g = torch.Generator("cuda").manual_seed(71)
+    qkv = [torch.randn((B, S, n, hd), device="cuda", generator=g)
+           .bfloat16().requires_grad_(True)
+           for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    dout = torch.randn((B, S, cfg.n_heads, hd), device="cuda",
+                       generator=g).bfloat16()
+
+    def attn_part():
+        for _ in range(G):
+            with torch.no_grad():
+                flash_attention(*qkv, causal=True, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk)
+            flash_attention(*qkv, causal=True, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk).backward(dout)
+
+    attn_ms = time_eager_ms(attn_part, reps=2)
+    del qkv, dout
+    steady_ms = train["ms_per_step_wall"]
+    _, _, nh, _ = ssm._dims(cfg)
+    s_ = cfg.ssm
+    bound_ms, bound_by = ssd_bound(B, S, nh, s_.head_dim, s_.d_state,
+                                   s_.chunk, 2, "mma_sync")
+    ssd_train_profile(
+        "hybrid_train_profile", state, step_fn, data, acts, steady_ms,
+        2 * cfg.n_layers, smi,
+        ssd_scan_launch_shape={"b": B, "l": S, "h": nh, "p": s_.head_dim,
+                               "n": s_.d_state, "chunk": s_.chunk},
+        ssd_scan_launch_bound_ms=bound_ms, ssd_scan_launch_bound_by=bound_by,
+        flash_attention_ms_per_step_alone=attn_ms,
+        flash_attention_share_of_step=attn_ms / steady_ms,
+        flash_attention_timed=f"{G} uses x (forward + recompute + "
+                              f"backward), (B, S, H, hd) = ({B}, {S}, "
+                              f"{cfg.n_heads}, {hd}) bf16, wall")
+
+    # --------------------------------------------------- 17. hybrid_decode
+    # prefill then decode against the full prefill, as ssm_decode; the
+    # decode step runs the shared block once per group, each on its own KV
+    # cache (copied from the shorter prefill into a 1024 window)
+    params = state["params"]
+    del state, train, step_fn, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = tree_util.tree_map(lambda t: t.float(), params)
+    toks = data.batch_at(300)["tokens"][:, :1024]
+
+    def decode_vs_prefill(m, p):
+        with torch.no_grad():
+            full, _ = m.prefill(p, {"tokens": toks})
+            _, caches = m.prefill(p, {"tokens": toks[:, :1023]})
+            cache = m.init_cache(2, 1024, device="cuda")
+            for dst, src in zip(tree_util.leaves(cache["ssm"]),
+                                tree_util.leaves(caches["ssm"])):
+                dst.copy_(src)
+            for name in ("k", "v"):
+                cache["attn"][name][:, :, :1023] = caches["attn"][name]
+            del caches
+            before = fd.launches
+            lg, _ = m.decode_step(p, cache, {"token": toks[:, 1023],
+                                             "pos": torch.tensor(1023)})
+            torch.cuda.synchronize()
+        return full, lg, cache, fd.launches - before
+
+    before = sk.launches
+    by_variant = dict(sk.launches_by_variant)
+    full16, lg16, cache16, fd16 = decode_vs_prefill(model, params)
+    k0 = cache16["attn"]["k"][0].clone()
+    v0 = cache16["attn"]["v"][0].clone()
+    del cache16
+    full32, lg32, cache32, fd32 = decode_vs_prefill(model32, params32)
+    del cache32
+    prefill_launches = sk.launches - before
+    prefill_by_variant = {k: v - by_variant[k]
+                          for k, v in sk.launches_by_variant.items()}
+    agree, readings = decode_readings(full16, lg16, full32, lg32)
+    # the kernel against its plain version on group 0's own bf16 cache,
+    # one row at its full 1024 and one ragged
+    lengths = torch.tensor([1024, 613], dtype=torch.int32, device="cuda")
+    q0 = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, cfg.n_heads, hd), np.float32)).cuda().bfloat16()
+    before_check = fd.launches
+    got = decode_attn(q0, k0, v0, lengths)
+    want = decode_attention_ref(q0, k0, v0, lengths)
+    torch.cuda.synchronize()
+    cache_reading = fd_reading(got, want)
+    ok = (agree and fd16 == G and fd32 == G
+          and fd.launches == before_check + 1 and cache_reading <= 1
+          and prefill_launches == 4 * cfg.n_layers
+          and prefill_by_variant == {"ffma": 2 * cfg.n_layers,
+                                     "mma_sync": 2 * cfg.n_layers})
+    line = {"phase": "hybrid_decode", "arch": cfg.name, "batch": 2,
+            "prefill_len": 1023, "full_len": 1024, **readings,
+            "flash_decode_launches_per_decode_step": {"bfloat16": fd16,
+                                                      "float32": fd32},
+            "expected_per_decode_step": f"{G} (one per group), (80, 80)",
+            "prefill_ssd_launches": prefill_launches,
+            "prefill_ssd_launches_by_variant": prefill_by_variant,
+            "group0_cache_check": {
+                "shape": [2, cfg.n_heads, cfg.n_kv_heads, hd, hd, 1024],
+                "lengths": lengths.tolist(),
+                "max_err": (got.float() - want.float()).abs().max().item(),
+                "reading": cache_reading, "tol": FD_TOL_TEXT},
+            "ok": ok, "card": smi}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"hybrid decode: {readings}; flash_decode "
+                             f"{fd16} / {fd32} launches per decode_step "
+                             f"(expected {G}), group-0 cache reading "
+                             f"{cache_reading}; ssd_scan {prefill_by_variant}")
+    del params, params32, full16, full32, lg16, lg32, k0, v0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ssd_scan": ssd_entry,
+            "flash_decode": {
+                "path": "hybrid_decode", "launches": fd16 + fd32,
+                "launches_per_decode_step": fd16, "head_dim": hd,
+                "max_abs_err": line["group0_cache_check"]["max_err"],
+                "reading": cache_reading}}
 
 
 def free_port() -> int:
@@ -2092,6 +2386,15 @@ def main() -> int:
     # ------------------------------------------------ 11-14. Mamba-2 phases
     ssd_entry = ssm_phases(smi, acts)
 
+    # ----------------------------------------------- 15-17. hybrid phases
+    # the Mamba-2 model, its optimizer state and caches are gone with
+    # ssm_phases' frame; the peak is read anew for zamba2
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hybrid = hybrid_phases(smi, acts)
+    ssd_entry["hybrid"] = hybrid["ssd_scan"]
+
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -2103,6 +2406,7 @@ def main() -> int:
         "library_ms": fd_serve["library_ms"], "tol": FD_TOL_TEXT,
         "max_reading": max(r["reading"] for r in results), "path": "serve",
         "launches_per_decode_step": launches / calls,
+        "hybrid": hybrid["flash_decode"],
         "long": {x: timings["long"][x] for x in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
             "library_ms", "share_of_bound")}}, {

@@ -51,7 +51,6 @@ def main(argv=None) -> dict:
                           decay_steps=args.steps,
                           quantize_states=args.quantize_opt)
     trainer = Trainer(model, opt_cfg, device=device)
-    state = trainer.init_state(torch.Generator().manual_seed(0))
     data = SyntheticTokens(cfg, batch=args.batch, seq=args.seq, device=device)
     step_fn = trainer.make_step()
     mon = StragglerMonitor()
@@ -74,9 +73,13 @@ def main(argv=None) -> dict:
 
     os.makedirs(args.ckpt_dir, exist_ok=True)
     t0 = time.perf_counter()
-    state, log = run_with_recovery(state, one_step, args.steps,
-                                   ckpt_dir=args.ckpt_dir,
-                                   ckpt_every=args.ckpt_every, straggler=mon)
+    # the initial state is handed over, not kept here: a full-width 2.4 B
+    # model's state (~24 GB with its moments) held twice does not fit one
+    # 80 GB card beside a step
+    state, log = run_with_recovery(
+        trainer.init_state(torch.Generator().manual_seed(0)), one_step,
+        args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        straggler=mon)
     sync()
     t_end = time.perf_counter()
     print(f"done: {args.steps} steps, straggles={log['straggles']}",

@@ -1,3 +1,3 @@
-from repro_torch.models.transformer import LM, SSMLM, build_model
+from repro_torch.models.transformer import LM, SSMLM, HybridLM, build_model
 
-__all__ = ["LM", "SSMLM", "build_model"]
+__all__ = ["LM", "SSMLM", "HybridLM", "build_model"]

@@ -110,11 +110,14 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` / ``jax.nn.gelu`` (tanh form) written out op by op as
     jax.nn writes them, so a bf16 model rounds where the reference rounds
     (``F.silu``/``F.gelu`` round once and differ from it by an ulp on ~40%
-    of bf16 elements)."""
+    of bf16 elements). jax.nn.gelu's constants enter in x's dtype (a
+    weak-typed 0.044715 is rounded to bf16 first), so they are tensors of
+    that dtype here: a Python scalar would multiply at float32."""
     if cfg.mlp_act == "silu":
         return silu(x)
     c = torch.tensor((2 / torch.pi) ** 0.5, dtype=x.dtype)
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3)))))
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x ** 3)))))
 
 
 def apply_mlp(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Decoder-only dense LM and the Mamba-2 LM: training (``loss_fn``),
-prefill and decode.
+"""Decoder-only dense LM, the Mamba-2 LM and the Zamba2-style hybrid:
+training (``loss_fn``), prefill and decode.
 
-Counterpart of the dense and SSM branches of ``repro.models.transformer``.
+Counterpart of the dense, SSM and hybrid branches of
+``repro.models.transformer``.
 The parameter tree keeps the reference's layout, with every block parameter
 stacked on a leading layer axis (``dense_stack.attn.wq`` is (L, d, H, hd),
 ``stack.ssm.wx`` is (L, d, d_inner)), so JAX parameters transfer one to one
@@ -31,9 +32,6 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
 def _unported(cfg: ArchConfig) -> str | None:
     """Why ``cfg`` cannot run on the port yet (and which ROADMAP item ports
     it), or None when its decode path is ported."""
-    if cfg.family == "hybrid" or cfg.hybrid_attn_every:
-        return ("hybrid Mamba-2 stacks with a shared attention block "
-                "(ROADMAP.md queue 1 item 4)")
     if cfg.family == "audio" or cfg.encdec is not None:
         return "encoder-decoder models (ROADMAP.md queue 1 item 5)"
     if cfg.family == "vlm" or cfg.vision is not None:
@@ -43,6 +41,16 @@ def _unported(cfg: ArchConfig) -> str | None:
     if cfg.mla is not None or cfg.mtp_depth:
         return "MLA attention and MTP (ROADMAP.md queue 1 item 3)"
     return None
+
+
+def _is_hybrid(cfg: ArchConfig) -> bool:
+    return cfg.family == "hybrid" or bool(cfg.hybrid_attn_every)
+
+
+def _refuse_hybrid(cfg: ArchConfig) -> None:
+    if _is_hybrid(cfg):
+        raise ValueError(f"{cfg.name} is a hybrid config: build it with "
+                         "HybridLM (or build_model)")
 
 
 # ------------------------------------------------------------------ blocks
@@ -162,6 +170,7 @@ class LM:
         if why is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: {why} not ported to repro_torch yet")
+        _refuse_hybrid(self.cfg)
         if self.cfg.ssm is not None:
             raise ValueError(f"{self.cfg.name} is a Mamba-2 config: build it "
                              "with SSMLM (or build_model)")
@@ -253,6 +262,7 @@ class SSMLM:
             raise NotImplementedError(
                 f"{self.cfg.name}: {why or 'not a Mamba-2 config'}; not "
                 "ported to repro_torch yet")
+        _refuse_hybrid(self.cfg)
 
     def init(self, gen: torch.Generator, device=None) -> dict:
         """Random parameters drawn from ``gen`` (a CPU generator), on
@@ -318,10 +328,157 @@ class SSMLM:
                              dtype=torch.float32)}
 
 
+# --------------------------------------------------------------- Hybrid model
+def _unstack(stack, n: int) -> list:
+    """The ``n`` trees along the leading axis of ``stack``'s leaves, by one
+    ``unbind`` per leaf: in backward each leaf then gathers one gradient,
+    where ``t[g]`` per tree would build a zero gradient the size of the
+    whole leaf for every ``g``."""
+    cols = [t.unbind(0) for t in tree_util.leaves(stack)]
+    return [tree_util.unflatten(stack, [c[g] for c in cols])
+            for g in range(n)]
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridLM:
+    """Zamba2-style: groups of Mamba-2 layers, each group followed by ONE
+    shared attention+MLP block (a single weight copy, one KV cache per
+    use). ``init``, ``loss_fn``, ``prefill``, ``init_cache`` and
+    ``decode_step``, with the reference's tree: ``groups`` leaves are
+    (G, group_size, ...), ``shared`` is one dense block."""
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        cfg = self.cfg
+        why = _unported(cfg)
+        if why is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: {why} not ported to repro_torch yet")
+        if not cfg.hybrid_attn_every or cfg.ssm is None:
+            raise ValueError(f"{cfg.name} is not a hybrid Mamba-2 config")
+        if cfg.n_layers % cfg.hybrid_attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
+                             f"split into groups of {cfg.hybrid_attn_every}")
+
+    @property
+    def group_size(self) -> int:
+        return self.cfg.hybrid_attn_every
+
+    @property
+    def n_groups(self) -> int:
+        """Layer groups (G), each followed by the shared block; not the
+        SSM's B/C group count ``cfg.ssm.n_groups``."""
+        return self.cfg.n_layers // self.group_size
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        """Random parameters drawn from ``gen`` (a CPU generator), on
+        ``device`` (default cuda; ``"meta"`` gives shapes only)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        embed = init_embedding(gen, cfg, device)
+        groups = _stack_trees([
+            init_stack(gen, cfg, "ssm", self.group_size, device)
+            for _ in range(self.n_groups)])
+        return {
+            "embed": embed,
+            "groups": groups,                    # (G, group_size, ...)
+            "shared": init_block(gen, cfg, "dense", device),
+            "final_norm": init_norm(cfg, cfg.d_model, device),
+        }
+
+    def _trunk(self, params: dict, tokens):
+        """Final-normed hidden states and, per group, its SSM states (leaves
+        (group_size, ...)) and the shared block's KV cache. Under autograd
+        the SSM layers are recomputed one by one in backward (inside
+        ``stack_forward``) and the shared block alone, as the reference
+        wraps it in ``jax.checkpoint``."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens, cfg)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+
+        def shared(h):
+            return block_forward(params["shared"], h, cfg, "dense",
+                                 positions=positions)
+
+        ssm_states, attn_caches = [], []
+        for group_p in _unstack(params["groups"], self.n_groups):
+            x, states = stack_forward(group_p, x, cfg, "ssm",
+                                      positions=positions)
+            if torch.is_grad_enabled():
+                x, cache = checkpoint(shared, x, use_reentrant=False)
+            else:
+                x, cache = shared(x)
+            ssm_states.append(states)
+            attn_caches.append(cache)
+        h = apply_norm(params["final_norm"], x, cfg)
+        return h, ssm_states, attn_caches
+
+    def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
+        """Mean next-token cross entropy of ``batch`` (``tokens``,
+        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`."""
+        h, _, _ = self._trunk(params, batch["tokens"])
+        return lm_loss(params["embed"], h[:, :-1], batch["labels"][:, 1:],
+                       self.cfg)
+
+    def prefill(self, params: dict, batch: dict, pctx=None):
+        """Logits of the last position (B, 1, V) float32 and the caches
+        ``{"ssm": {"conv": (sx, sB, sC) each (G, gs, B, W-1, C), "ssm":
+        (G, gs, B, h, p, n) float32}, "attn": {"k", "v"} each (G, B, S, K,
+        hd)}``."""
+        h, ssm_states, attn_caches = self._trunk(params, batch["tokens"])
+        return logits(params["embed"], h[:, -1:, :], self.cfg), {
+            "ssm": _stack_trees(ssm_states),
+            "attn": _stack_trees(attn_caches)}
+
+    def decode_step(self, params: dict, caches: dict, batch: dict):
+        """One token per row. ``batch``: ``token`` (B,) and ``pos`` (scalar or
+        (B,)). Returns (logits (B,1,V) float32, caches), the caches updated
+        in place: group g's SSM states and KV cache are written through
+        views of slice ``[g]``."""
+        cfg = self.cfg
+        pos = batch["pos"]
+        x = embed_tokens(params["embed"], batch["token"][:, None], cfg)
+        for g, group_p in enumerate(_unstack(params["groups"],
+                                             self.n_groups)):
+            x, _ = stack_decode(group_p, x, cfg, "ssm", pos=pos,
+                                caches=tree_util.tree_map(lambda t: t[g],
+                                                          caches["ssm"]))
+            x, _ = block_decode(params["shared"], x, cfg, "dense", pos=pos,
+                                cache={k: v[g] for k, v in
+                                       caches["attn"].items()})
+        h = apply_norm(params["final_norm"], x, cfg)
+        return logits(params["embed"], h, cfg), caches
+
+    def init_cache(self, batch_size: int, seq_len: int, device=None) -> dict:
+        """Zero caches for ``batch_size`` rows and a ``seq_len`` window,
+        shaped as :meth:`prefill` returns them."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        s, d_in, nh, _ = ssm_lib._dims(cfg)
+        gn = s.n_groups * s.d_state
+        G, gs, W, dt = self.n_groups, self.group_size, s.d_conv - 1, \
+            dtype_of(cfg)
+
+        def zeros(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        kv = (G, batch_size, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"ssm": {"conv": (zeros(G, gs, batch_size, W, d_in),
+                                 zeros(G, gs, batch_size, W, gn),
+                                 zeros(G, gs, batch_size, W, gn)),
+                        "ssm": zeros(G, gs, batch_size, nh, s.head_dim,
+                                     s.d_state, dtype=torch.float32)},
+                "attn": {"k": zeros(*kv), "v": zeros(*kv)}}
+
+
 def build_model(cfg: ArchConfig):
     """The port's model for ``cfg``: :class:`SSMLM` for the ``ssm`` family,
-    :class:`LM` otherwise; raises ``NotImplementedError`` for the families
-    not ported yet, naming the ROADMAP item that ports each."""
+    :class:`HybridLM` for ``hybrid``, :class:`LM` otherwise; raises
+    ``NotImplementedError`` for the families not ported yet, naming the
+    ROADMAP item that ports each."""
     if cfg.family == "ssm":
         return SSMLM(cfg)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
     return LM(cfg)

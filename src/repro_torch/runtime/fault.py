@@ -75,9 +75,10 @@ def run_with_recovery(state, step_fn: Callable, n_steps: int, *,
     checkpoints; on SimulatedFailure, restore + replay. Returns
     (final_state, log). The template for restoring holds shapes and dtypes
     only (meta tensors), and restored leaves go back to the device the
-    state's leaves were on."""
-    first = tree_util.leaves(state)
-    device = first[0].device if first else None
+    state's leaves were on. Nothing here keeps a reference to ``state``
+    once the first step has replaced it, so a caller that passes it
+    without keeping it holds one train state, not two."""
+    device = next((x.device for x in tree_util.leaves(state)), None)
     template = tree_util.tree_map(
         lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), state)
     save_checkpoint(ckpt_dir, 0, state)

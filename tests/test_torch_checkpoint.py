@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -160,6 +161,29 @@ def test_failure_replay_is_exact(tmp_path):
                                  injector=inj)
     assert torch.equal(ref["w"], out["w"])
     assert log["failures"] == 3 and log["replayed_steps"] > 0
+
+
+def test_run_with_recovery_drops_the_initial_state(tmp_path):
+    """Once the first step has replaced it, nothing in run_with_recovery
+    holds the state it was given (the launcher hands the initial state
+    over, so a full-width train state is held once, not twice)."""
+    refs = []
+
+    def initial():
+        w = torch.ones(4)
+        refs.append(weakref.ref(w))
+        return {"w": w}
+
+    alive = []
+
+    def step(st, i):
+        alive.append(refs[0]() is not None)
+        return {"w": st["w"] + 1}
+
+    out, _ = run_with_recovery(initial(), step, 3,
+                               ckpt_dir=str(tmp_path), ckpt_every=10)
+    assert alive == [True, False, False]
+    assert torch.equal(out["w"], torch.full((4,), 4.0))
 
 
 def test_train_step_replay_is_exact(tmp_path):

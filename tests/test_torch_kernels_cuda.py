@@ -480,3 +480,61 @@ def test_matmul_tile_refuses_what_the_contract_refuses_on_card(cuda_device):
     assert matmul(a, b, bk=256).shape == (4096, 768)
     with pytest.raises(ValueError, match="contiguous"):
         matmul(a, b.t(), bk=256)
+
+
+# ------------------------------------------------------------ HybridLM decode
+def _hybrid_decode(dtype, device, plain: bool, monkeypatch):
+    """One decode_step of the reduced zamba2 (two groups; head dim 80, the
+    shared block's on the full config) on the caches of a prefill of 39
+    tokens, rows at positions 39 and 35; with ``plain`` its decode attention
+    is the plain decode_attention_ref. Returns (logits, flash_decode
+    launches in the step, groups)."""
+    from repro_torch.config import reduced
+    from repro_torch.configs import get
+    from repro_torch.models import HybridLM, attention, build_model
+    model = build_model(reduced(get("zamba2-2.7b"), head_dim=80,
+                                dtype=dtype))
+    assert isinstance(model, HybridLM)
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    B, S = 2, 40
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, (B, S))).to(device)
+    if plain:
+        monkeypatch.setattr(attention, "decode_attn", decode_attention_ref)
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": toks[:, :-1]})
+        cache = model.init_cache(B, S, device=device)
+        for dst, src in zip((*cache["ssm"]["conv"], cache["ssm"]["ssm"]),
+                            (*caches["ssm"]["conv"], caches["ssm"]["ssm"])):
+            dst.copy_(src)
+        for name in ("k", "v"):
+            cache["attn"][name][:, :, :S - 1] = caches["attn"][name]
+        before = fd_kernel.launches
+        lg, _ = model.decode_step(params, cache, {
+            "token": toks[:, -1], "pos": torch.tensor([S - 1, S - 5])})
+        torch.cuda.synchronize()
+    return lg, fd_kernel.launches - before, model.n_groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_decode_step_launches_flash_decode_per_group_on_card(
+        dtype, cuda_device, monkeypatch):
+    lg, launched, groups = _hybrid_decode(dtype, cuda_device, False,
+                                          monkeypatch)
+    assert groups == 2 and launched == groups
+    assert bool(torch.isfinite(lg).all())
+
+
+@pytest.mark.cuda
+def test_hybrid_decode_step_matches_plain_attention_on_card(cuda_device,
+                                                            monkeypatch):
+    """The float32 model through the kernel against the same model with the
+    plain decode attention, at FD_TOL (in bf16 a one-step difference of the
+    attention output grows through the layers after it)."""
+    got, launched, groups = _hybrid_decode("float32", cuda_device, False,
+                                           monkeypatch)
+    want, plain_launched, _ = _hybrid_decode("float32", cuda_device, True,
+                                             monkeypatch)
+    assert launched == groups and plain_launched == 0
+    _fd_close(got, want)

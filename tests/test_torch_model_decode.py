@@ -157,7 +157,6 @@ def test_bridge_names_and_rejects_bad_leaves():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "granite-moe-1b-a400m",
-                                  "zamba2-2.7b",
                                   "internvl2-1b", "whisper-small"])
 def test_unported_families_raise_naming_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):

@@ -288,11 +288,6 @@ def test_prefill_then_decode_matches_full_prefill(dtype):
     _close(lg, full, 3e-2)
 
 
-def test_build_model_still_refuses_hybrid():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        build_model(reduced(get("zamba2-2.7b")))
-
-
 # ---------------------------------------------------------------- training
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_trainer_five_step_trajectory_matches_reference(dtype):

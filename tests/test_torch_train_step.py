@@ -58,9 +58,9 @@ def _compile(fn, *args):
     return jax.jit(fn).lower(*args).compile(compiler_options=EXACT)
 
 
-def _models(dtype="float32", **over):
-    jcfg = jax_reduced(jax_get(ARCH), dtype=dtype, **over)
-    tcfg = reduced(get(ARCH), dtype=dtype, **over)
+def _models(dtype="float32", arch=ARCH, **over):
+    jcfg = jax_reduced(jax_get(arch), dtype=dtype, **over)
+    tcfg = reduced(get(arch), dtype=dtype, **over)
     jm, tm = jax_build_model(jcfg), build_model(tcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tp = bridge.load_params(tm, _leaves(jp), device="cpu")
@@ -168,9 +168,17 @@ def test_lm_loss_with_padded_chunk_matches_reference():
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_loss_fn_and_grads_match_reference(dtype):
-    jm, tm, jp, tp = _models(dtype)
+#: the other dense configs, reduced, beside exanest-lm-100m (whose cases
+#: keep their ids): their training runs on the port as the decode does
+DENSE_ARCHS = ["deepseek-7b", "starcoder2-7b", "command-r-35b",
+               "mistral-large-123b"]
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    pytest.param(arch, dtype, id=dtype if arch == ARCH else f"{arch}-{dtype}")
+    for arch in [ARCH] + DENSE_ARCHS for dtype in ("float32", "bfloat16")])
+def test_loss_fn_and_grads_match_reference(arch, dtype):
+    jm, tm, jp, tp = _models(dtype, arch)
     jb, tb = _batch(tm.cfg.vocab_size)
     j_loss, j_grads = _compile(jax.value_and_grad(jm.loss_fn), jp, jb)(jp, jb)
     t_loss, t_grads = _value_and_grad(tm, tp, tb, None)
