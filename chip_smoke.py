@@ -96,7 +96,25 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             and (flat, hierarchical) against the gradient of one
             single-process step at global batch 8 (DP_GRAD_TOL); that
             step's loss and parameters against the first hierarchical
-            step's to 2e-2.
+            step's to 2e-2. Then the Trainer's default strategy, "auto"
+            (the collective planner per bucket), for 2 steps each: (e)
+            exact: the plan {"hierarchical": 25} (AUTO_PLANS, as the CPU
+            tests hold it against the reference's planner), 50 combine
+            launches a step, parameters bitwise equal across ranks, and the
+            first step's synced gradient and parameters equal to the
+            hierarchical run's bit for bit wherever the rank's local
+            gradients were (else DP_GRAD_TOL against them); (f) with
+            allow_lossy: {"compressed": 25}, 75 launches a step, the
+            first-step gradient against the compressed algorithm in numpy
+            float32 (no error feedback on this path) at DP_GRAD_TOL; (g)
+            sync_gradients(strategy="auto") on 5,000,000 + 1,000 float32
+            per rank: the plan ["hierarchical", "flat"], 2 launches, the
+            float64 mean of the four ranks to 1e-5. Each reports the
+            planner's host time per sync_gradients call: plan_buckets,
+            which each call runs once, timed alone (perf_counter). The
+            ranks' first-step gradients are gathered once for each input
+            that differs on some rank, and the phase reports its time by
+            section on rank 0.
 9. train    repro_torch.launch.train.main on full-width exanest-lm-100m in
             bf16: batch 8, seq 512, 30 steps, run_with_recovery with its
             step-0 checkpoint (under chiprun_out/, checked, then deleted).
@@ -173,6 +191,7 @@ same lines to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import datetime
@@ -250,6 +269,14 @@ COMBINE_TIMING_SHAPE = (2, 2_500_000)
 #: batch, seq, steps and lr) drops by ~2 nats on the CPU (PERF.md)
 TRAIN = dict(batch=8, seq=512, steps=30, lr=1e-3, min_drop=0.2)
 DP = dict(world=4, mesh=(2, 2), global_batch=8, seq=512, steps=2)
+#: the plans strategy="auto" must make on the dp mesh (pod 2, data 2), as
+#: tests/test_torch_grad_sync.py holds them against the reference's planner:
+#: full-width exanest-lm-100m's 124,668,672 parameters in 25 buckets of at
+#: most 20,000,000 B, exact (check e) and lossy (check f); and check (g)'s
+#: tree of 5,000,000 + 1,000 float32, buckets of 20,000,000 B and 4,000 B
+AUTO_PLANS = {False: ["hierarchical"] * 25, True: ["compressed"] * 25}
+MIXED_TREE = {"a": 5_000_000, "b": 1_000}
+MIXED_PLAN = ["hierarchical", "flat"]
 #: check (c)'s limits, relative to the largest |element| of the plain
 #: version: a float64 mean for the exact strategies, the same float32 steps
 #: for compressed (as tests/test_torch_grad_sync.py holds it on the CPU)
@@ -1032,14 +1059,20 @@ def plain_compressed_bucket(parts: list, mesh: tuple[int, int]) -> np.ndarray:
 
 
 def plain_compressed_sync(parts: list, leaf_sizes: list[int], per: int,
-                          mesh: tuple[int, int]) -> np.ndarray:
+                          mesh: tuple[int, int], *,
+                          error_feedback: bool = True) -> np.ndarray:
     """CompressedSync's first call written out in numpy float32, from each
     rank's flat gradient (the sync's leaf order, leaves of ``leaf_sizes``
     elements): each leaf rounded to int8 steps of its own scale (the error
     feedback's residual is still 0), then plain_compressed_bucket on each
-    bucket of ``per`` elements."""
+    bucket of ``per`` elements. ``error_feedback=False`` leaves out the
+    per-leaf rounding: ``sync_gradients``' compressed buckets alone, as
+    strategy="auto" with allow_lossy runs them (no error feedback)."""
     hats = []
     for g in parts:
+        if not error_feedback:
+            hats.append(g)
+            continue
         hat, off = np.empty_like(g), 0
         for n in leaf_sizes:
             x = g[off:off + n]
@@ -1093,7 +1126,7 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
     from repro_torch.parallel.grad_sync import (CompressedSync, bucket_sizes,
                                                 combine_launches_per_sync,
                                                 flatten_to_buckets,
-                                                sync_gradients,
+                                                plan_buckets, sync_gradients,
                                                 unflatten_from_buckets)
     from repro_torch.train.loop import Trainer
     from repro_torch.train.optimizer import AdamWConfig
@@ -1105,6 +1138,15 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=600))
+    sections: dict = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, kept under ``name``."""
+        now = time.perf_counter()
+        sections[name] = now - t_lap[0]
+        t_lap[0] = now
+
     try:
         mesh = make_mesh(DP["mesh"], ("pod", "data"), device=dev)
         cfg = get("exanest-lm-100m")
@@ -1138,15 +1180,20 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
         rec: dict = {"rank": rank, "coords": mesh.coords,
                      "buckets": len(buckets), "bucket_elems": buckets[:2],
                      "steps": {}}
-        first_hier = None
-        for strategy in ("flat", "hierarchical", "compressed"):
-            tr = Trainer(model, opt_cfg, mesh=mesh, sync_strategy=strategy,
-                         device=dev)
-            sync = (CompressedSync(mesh, mean_over=world)
-                    if strategy == "compressed" else tr.make_sync())
-            step = tr.make_step(sync_fn=capture(sync, strategy))
-            state = state0
-            want = combine_launches_per_sync(mesh, len(buckets), strategy)
+
+        def timed_plan(tree, lossy):
+            """plan_buckets on ``tree`` with the default policy, as each
+            sync_gradients(strategy="auto") call runs it once, and its host
+            time in ms (perf_counter)."""
+            t = time.perf_counter()
+            plan = plan_buckets(tree, mesh, allow_lossy=lossy)
+            return plan, (time.perf_counter() - t) * 1e3
+
+        def run(label, step, want):
+            """DP["steps"] steps of ``step`` from state0: checks (a) and (b)
+            on each; returns the mean loss and the parameters after the
+            first."""
+            state, first = state0, None
             for i in range(DP["steps"]):
                 torch.cuda.synchronize()
                 ck.launches = 0
@@ -1159,19 +1206,88 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
                 dist.all_gather_object(losses, float(m["loss"]))
                 digests = [None] * world
                 dist.all_gather_object(digests, _digest(state["params"]))
-                rec["steps"][f"{strategy}-{i}"] = {
+                rec["steps"][f"{label}-{i}"] = {
                     "combine_launches": launches, "expected": want,
                     "loss_mean": float(np.mean(losses)), "wall_s": wall,
                     "params_equal_across_ranks": len(set(digests)) == 1}
                 if launches != want:
-                    raise AssertionError(f"rank {rank} {strategy} step {i}: "
+                    raise AssertionError(f"rank {rank} {label} step {i}: "
                                          f"{launches} combine launches, "
                                          f"expected {want}")
                 if len(set(digests)) != 1:
-                    raise AssertionError(f"{strategy} step {i}: parameters "
+                    raise AssertionError(f"{label} step {i}: parameters "
                                          "differ across ranks")
-                if strategy == "hierarchical" and i == 0:
-                    first_hier = (float(np.mean(losses)), state["params"])
+                if i == 0:
+                    first = (float(np.mean(losses)), state["params"])
+            return first
+
+        lap("setup")
+        first = {}
+        for strategy in ("flat", "hierarchical", "compressed"):
+            tr = Trainer(model, opt_cfg, mesh=mesh, sync_strategy=strategy,
+                         device=dev)
+            sync = (CompressedSync(mesh, mean_over=world)
+                    if strategy == "compressed" else tr.make_sync())
+            first[strategy] = run(
+                strategy, tr.make_step(sync_fn=capture(sync, strategy)),
+                combine_launches_per_sync(mesh, [strategy] * len(buckets)))
+        first_hier = first["hierarchical"]
+        lap("named_runs")
+        # (e), (f): the Trainer's default strategy, "auto", exact and lossy;
+        # the plan is the list the sync runs, its launches are gated by run
+        for label, lossy in (("auto", False), ("auto_lossy", True)):
+            timed = [timed_plan(state0["params"], lossy) for _ in range(3)]
+            plan = timed[0][0]
+            if plan != AUTO_PLANS[lossy]:
+                raise AssertionError(f"{label}: planned "
+                                     f"{collections.Counter(plan)}, "
+                                     f"expected {AUTO_PLANS[lossy]}")
+            tr = Trainer(model, opt_cfg, mesh=mesh, device=dev,
+                         allow_lossy=lossy)
+            if tr.sync_strategy != "auto":
+                raise AssertionError("Trainer's default sync strategy "
+                                     f"is {tr.sync_strategy!r}")
+            first[label] = run(
+                label, tr.make_step(sync_fn=capture(tr.make_sync(), label)),
+                combine_launches_per_sync(mesh, plan))
+            rec[f"{label}_plan"] = dict(collections.Counter(plan))
+            rec[f"{label}_planner_ms"] = [ms for _, ms in timed]
+        lap("auto_runs")
+        # (g) a mixed plan: one hierarchical bucket, one flat
+        rng = np.random.default_rng(70 + rank)
+        mixed = {k: torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dev) for k, n in MIXED_TREE.items()}
+        plan, plan_ms = timed_plan(mixed, False)
+        if plan != MIXED_PLAN:
+            raise AssertionError(f"mixed tree planned {plan}, expected "
+                                 f"{MIXED_PLAN}")
+        torch.cuda.synchronize()
+        ck.launches = 0
+        mixed_out = sync_gradients(mixed, mesh, strategy="auto",
+                                   mean_over=world)
+        torch.cuda.synchronize()
+        mixed_launches = ck.launches
+        want = combine_launches_per_sync(mesh, plan)
+        rec["mixed"] = {"plan": plan, "combine_launches": mixed_launches,
+                        "expected": want, "planner_ms": plan_ms}
+        if mixed_launches != want:
+            raise AssertionError(f"rank {rank} mixed sync: {rec['mixed']}")
+        flat_in = torch.cat([mixed[k].cpu() for k in sorted(mixed)])
+        flat_out = torch.cat([mixed_out[k].cpu() for k in sorted(mixed)])
+        ins = ([torch.empty_like(flat_in) for _ in range(world)]
+               if rank == 0 else None)
+        dist.gather(flat_in, ins, dst=0)
+        if rank == 0:
+            want_mean = sum(x.numpy().astype(np.float64) for x in ins) / world
+            rel = float(np.abs(flat_out.numpy() - want_mean).max()
+                        / np.abs(want_mean).max())
+            rec["mixed"].update({"elements": int(flat_in.numel()),
+                                 "max_rel_err": rel, "tol": 1e-5,
+                                 "plain": "float64 mean of the four ranks"})
+            if not rel <= 1e-5:
+                raise AssertionError(f"mixed auto sync off the float64 mean "
+                                     f"by {rel}")
+        lap("mixed")
         # (c) one bucket through each strategy against its plain version
         n = bucket_bytes // 4
         x = torch.from_numpy(np.random.default_rng(50 + rank)
@@ -1205,6 +1321,7 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
                 if not rel <= tol:
                     raise AssertionError(f"{strategy} sync of one bucket off "
                                          f"its plain version by {rel}")
+        lap("bucket_check")
         # (d) each sync's first-step gradient against its plain version on
         # the four ranks' gathered gradients, and against one single-process
         # step's at the global batch; that step's loss and parameters
@@ -1214,29 +1331,73 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
                 sync_fn=capture(lambda g: g, "single"))
             s1, m1 = single(state0, data.batch_at(0))
         leaf_sizes = [t.numel() for t in tree_util.leaves(state0["params"])]
-        grads = {}
-        for k in ("flat", "hierarchical", "compressed"):
-            mine = torch.cat([g.float().reshape(-1) for g in
-                              tree_util.leaves(inputs[k])]).cpu()
-            parts = ([torch.empty_like(mine) for _ in range(world)]
-                     if rank == 0 else None)
-            dist.gather(mine, parts, dst=0)
+        # (e) auto against hierarchical on this rank: the same plan and the
+        # same arithmetic, so equal inputs must give equal bits
+        def bitwise(a, b):
+            return all(torch.equal(x, y) for x, y in zip(
+                tree_util.leaves(a), tree_util.leaves(b)))
+
+        same = {"inputs": bitwise(inputs["auto"], inputs["hierarchical"]),
+                "synced": bitwise(synced["auto"], synced["hierarchical"]),
+                "params": bitwise(first["auto"][1], first_hier[1])}
+        every = [None] * world
+        dist.all_gather_object(every, same)
+        rec["auto_vs_hierarchical_bitwise"] = every
+        if same["inputs"] and not (same["synced"] and same["params"]):
+            raise AssertionError(f"rank {rank}: auto and hierarchical took "
+                                 "the same gradient and plan but differ: "
+                                 f"{same}")
+        # auto is held against its plain version only where some rank's
+        # bits differ from hierarchical's (else its errors are
+        # hierarchical's, to the bit)
+        bit_equal = all(r["inputs"] and r["synced"] for r in every)
+        lap("single_step")
+        # the four ranks' first-step gradients are gathered to rank 0 once
+        # for each distinct input: a sync whose input equals, on every rank,
+        # one gathered before reuses its parts and its plain versions
+        gathered: list = []             # [(key, the ranks' flat grads)]
+        plains: dict = {}               # (gathered index, kind) -> flat
+        grads, rec["gathered_from"] = {}, {}
+        for k in ("flat", "hierarchical", "compressed", "auto_lossy") + (
+                () if bit_equal else ("auto",)):
+            mine = [bitwise(inputs[k], inputs[j]) for j, _ in gathered]
+            alike = [None] * world
+            dist.all_gather_object(alike, mine)
+            src = next((i for i in range(len(gathered))
+                        if all(m[i] for m in alike)), None)
+            if src is None:
+                flat_g = torch.cat([g.float().reshape(-1) for g in
+                                    tree_util.leaves(inputs[k])]).cpu()
+                parts = ([torch.empty_like(flat_g) for _ in range(world)]
+                         if rank == 0 else None)
+                dist.gather(flat_g, parts, dst=0)
+                src = len(gathered)
+                gathered.append((k, parts and [t.numpy() for t in parts]))
+                del flat_g, parts
+            rec["gathered_from"][k] = gathered[src][0]
             if rank != 0:
                 continue
-            parts = [t.numpy() for t in parts]
-            if k == "compressed":
-                flat = plain_compressed_sync(parts, leaf_sizes,
-                                             bucket_bytes // 4, DP["mesh"])
-            else:
-                flat = (sum(p.astype(np.float64) for p in parts)
-                        / world).astype(np.float32)
+            parts = gathered[src][1]
+            lossy = k in ("compressed", "auto_lossy")
+            kind = k if lossy else "mean"
+            if (src, kind) not in plains:
+                plains[src, kind] = (plain_compressed_sync(
+                    parts, leaf_sizes, bucket_bytes // 4, DP["mesh"],
+                    error_feedback=k == "compressed") if lossy else
+                    (sum(p.astype(np.float64) for p in parts)
+                     / world).astype(np.float32))
             _, spec = flatten_to_buckets(synced[k], bucket_bytes)
-            plain = unflatten_from_buckets([torch.from_numpy(flat)], spec)
+            plain = unflatten_from_buckets(
+                [torch.from_numpy(plains[src, kind])], spec)
             grads[k] = {
                 "plain": grad_errors(synced[k], plain, bucket_bytes),
                 "single": grad_errors(synced[k], synced["single"],
                                       bucket_bytes)}
-            del parts, flat, plain
+            if k == "auto":
+                grads[k]["hierarchical"] = grad_errors(
+                    synced[k], synced["hierarchical"], bucket_bytes)
+            del parts, plain
+        del gathered, plains
         if rank == 0:
             loss_err = abs(float(m1["loss"]) - first_hier[0])
             worst = 0.0
@@ -1257,15 +1418,25 @@ def dp_worker(rank: int, port: int, out_dir: str) -> None:
             if not (loss_err < 2e-2 and worst <= 2e-2):
                 raise AssertionError(f"DP step vs single step: loss err "
                                      f"{loss_err}, param excess {worst}")
+            # auto against hierarchical: bit for bit where both took the
+            # same gradients (above); else to DP_GRAD_TOL's "plain" limit
+            if not bit_equal:
+                got = grads["auto"]["hierarchical"]["worst_leaf_rel"]
+                if not got <= DP_GRAD_TOL["plain"]:
+                    raise AssertionError(f"auto's first-step gradient off "
+                                         f"hierarchical's by {got}")
             for k, e in grads.items():
                 for against, tol in DP_GRAD_TOL.items():
                     got = e[against]["worst_leaf_rel"]
-                    if (against == "plain" or k != "compressed") \
+                    if (against == "plain" or k not in ("compressed",
+                                                        "auto_lossy")) \
                             and not got <= tol:
                         raise AssertionError(
                             f"{k} sync's first-step gradient vs the "
                             f"{against} version: leaf {e[against]['worst_leaf']}"
                             f" off by {got} > {tol}")
+        lap("first_step_checks")
+        rec["section_s"] = sections
         (Path(out_dir) / f"dp_rank{rank}.json").write_text(json.dumps(rec))
         dist.barrier()
     finally:
@@ -2260,12 +2431,22 @@ def main() -> int:
               k: r0[f"bucket_check_launches_{k}"]
               for k in ("flat", "hierarchical", "compressed")},
           "single_check": r0["single_check"],
+          "first_step_gathered_from": r0["gathered_from"],
+          "auto": {"plans": {k: r0[f"{k}_plan"]
+                             for k in ("auto", "auto_lossy")},
+                   "planner_ms_per_sync": {
+                       k: r0[f"{k}_planner_ms"]
+                       for k in ("auto", "auto_lossy")},
+                   "vs_hierarchical_bitwise":
+                       r0["auto_vs_hierarchical_bitwise"],
+                   "mixed": r0["mixed"]},
           "coords": [r["coords"] for r in ranks],
           "combine_launches_rank0": dp_launches,
           "combine_launches_all_ranks": sum(
               s["combine_launches"] for r in ranks
               for s in r["steps"].values()),
-          "wall_s": dp_wall, "card": smi})
+          "wall_s": dp_wall,
+          "rank0_section_s": r0["section_s"], "card": smi})
     dp_steps = sum(1 for k in r0["steps"] if not k.startswith("flat"))
 
     # ----------------------------------------------------------- 9. train

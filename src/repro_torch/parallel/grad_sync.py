@@ -11,19 +11,27 @@ Counterpart of ``repro.parallel.grad_sync`` (``flatten_to_buckets``,
 * ``compressed``   — the hierarchical schedule with int8 codes on the slow
                      (inter) hop (``_compressed_inter``); error feedback is
                      :class:`CompressedSync`
-* ``auto``         — raises ``NotImplementedError``: the reference asks its
-                     collective planner, whose port is ROADMAP.md queue 1
-                     item 10
+* ``auto``         — the collective planner (:mod:`repro_torch.core.planner`)
+                     picks one of the above per bucket by predicted cost
+                     on the policy's machine model, as the reference's
+                     does (:func:`plan_buckets` lists its choices); host
+                     code on byte counts and axis sizes only
 
 Gradients are packed into float32 buckets of ``CommPolicy.bucket_bytes``
 bytes in the reference's leaf order (sorted dict keys), so bucket
 boundaries, and with them the compressed sync's per-shard scales, are the
 reference's.
+
+:func:`emit_sync_program` and :func:`cost_sync_program_s` are copies of the
+reference's: the train-step sync as a Program of
+:mod:`repro_torch.core.program`, costed on a machine model (pure host code,
+no tensors).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 import torch.distributed as dist
@@ -33,9 +41,11 @@ from repro_torch.core.collectives import (all_gather_stack, flat_allreduce,
                                           hierarchical_allreduce,
                                           hierarchical_schedule)
 from repro_torch.core.comm import CommPolicy
+from repro_torch.core.planner import GRAD_SYNC_STRATEGIES as STRATEGIES
 from repro_torch.kernels.allreduce_combine.ops import combine_parts
 
-STRATEGIES = ("flat", "hierarchical", "compressed")
+#: ``combine`` launches one bucket takes on a two-axis mesh, by strategy
+_COMBINES = {"flat": 0, "hierarchical": 2, "compressed": 3}
 
 
 # ------------------------------------------------------------------ buckets
@@ -71,17 +81,22 @@ def bucket_sizes(tree, bucket_bytes: int) -> list[int]:
     return [min(per, n - i) for i in range(0, n, per)]
 
 
-def combine_launches_per_sync(mesh, n_buckets: int, strategy: str, *,
+def combine_launches_per_sync(mesh, plan: Sequence[str], *,
                               intra_axis: str = "data",
                               inter_axis: str | None = "pod") -> int:
     """``combine`` launches one :func:`sync_gradients` call makes on each
-    rank of ``mesh``: the intra reduce-scatter's and the inter allreduce's
-    per bucket, plus the inter reduction of the scales for ``compressed``;
-    none for ``flat`` (the backend reduces) or where the mesh has one DP
-    axis of more than one rank (``flat`` then serves every strategy)."""
-    if strategy == "flat" or len(_dp_axes(mesh, intra_axis, inter_axis)) < 2:
+    rank of ``mesh``, given the strategy of each bucket (``[strategy] *
+    n_buckets`` for a named one, :func:`plan_buckets` for ``"auto"``): the
+    intra reduce-scatter's and the inter allreduce's per bucket, plus the
+    inter reduction of the scales for ``compressed``; none for ``flat``
+    (the backend reduces) or where the mesh has one DP axis of more than
+    one rank (``flat`` then serves every strategy)."""
+    unknown = sorted(set(plan) - set(STRATEGIES))
+    if unknown:
+        raise ValueError(f"unknown strategies {unknown} in the plan")
+    if len(_dp_axes(mesh, intra_axis, inter_axis)) < 2:
         return 0
-    return n_buckets * (2 if strategy == "hierarchical" else 3)
+    return sum(_COMBINES[s] for s in plan)
 
 
 # --------------------------------------------------------------- strategies
@@ -90,36 +105,70 @@ def _dp_axes(mesh, intra_axis, inter_axis) -> tuple[str, ...]:
                  if a and a in mesh.axis_names and mesh.shape[a] > 1)
 
 
+def plan_bucket_strategy(policy: CommPolicy, nbytes: int,
+                         axis_sizes: tuple[int, ...],
+                         allow_lossy: bool = False) -> str:
+    """Planner-chosen strategy for one bucket of ``nbytes`` over the given
+    DP axis sizes (intra first). Pure host code: static ints only."""
+    intra = axis_sizes[0]
+    inter = axis_sizes[-1] if len(axis_sizes) > 1 else 1
+    return policy.plan_bucket(nbytes, intra, inter,
+                              allow_lossy=allow_lossy).schedule
+
+
+def plan_buckets(tree, mesh, policy: CommPolicy | None = None,
+                 allow_lossy: bool = False, *, intra_axis: str = "data",
+                 inter_axis: str | None = "pod") -> list[str]:
+    """The strategy of each bucket of ``tree`` on ``mesh``, in bucket order:
+    the plan :func:`sync_gradients` with ``strategy="auto"`` runs (it calls
+    this once a call). Shapes only: meta tensors do. Empty where the mesh
+    has no DP axis of more than one rank."""
+    policy = policy or CommPolicy()
+    axes = _dp_axes(mesh, intra_axis, inter_axis)
+    if not axes:
+        return []
+    axis_sizes = tuple(int(mesh.shape[a]) for a in axes)
+    sizes = bucket_sizes(tree, policy.bucket_bytes(math.prod(axis_sizes)))
+    return [plan_bucket_strategy(policy, n * 4, axis_sizes, allow_lossy)
+            for n in sizes]
+
+
 def sync_gradients(grads, mesh, *, strategy: str = "hierarchical",
                    intra_axis: str = "data", inter_axis: str | None = "pod",
-                   policy: CommPolicy | None = None, mean_over: int = 1):
+                   policy: CommPolicy | None = None, mean_over: int = 1,
+                   allow_lossy: bool = False):
     """All-reduce a gradient tree across the mesh's DP axes and divide by
     ``mean_over``; returns float32 buckets unpacked into each leaf's dtype.
-    The reference's ``allow_lossy`` switch comes with ``strategy="auto"``."""
-    if strategy == "auto":
-        raise NotImplementedError(
-            "strategy='auto' is not ported: the reference's collective "
-            "planner needs the port's copies of core/comm, core/machine and "
-            "core/planner (ROADMAP.md queue 1 item 10)")
-    if strategy not in STRATEGIES:
-        raise ValueError(f"strategy must be one of {STRATEGIES} (or 'auto'), "
+
+    ``allow_lossy`` only matters for ``strategy="auto"``: it decides
+    whether the planner may pick the int8-compressed sync (whose error
+    feedback is the caller's job — see :class:`CompressedSync`). A bucket
+    the planner finds no feasible schedule for raises ``ValueError``."""
+    if strategy != "auto" and strategy not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES} or 'auto', "
                          f"got {strategy!r}")
     policy = policy or CommPolicy()
     axes = _dp_axes(mesh, intra_axis, inter_axis)
     if not axes:
         return grads
-    world = math.prod(mesh.shape[a] for a in axes)
-    buckets, spec = flatten_to_buckets(grads, policy.bucket_bytes(world))
+    axis_sizes = tuple(int(mesh.shape[a]) for a in axes)
+    buckets, spec = flatten_to_buckets(
+        grads, policy.bucket_bytes(math.prod(axis_sizes)))
+    plan = (plan_buckets(grads, mesh, policy, allow_lossy,
+                         intra_axis=intra_axis, inter_axis=inter_axis)
+            if strategy == "auto" else [strategy] * len(buckets))
     out = []
-    for b in buckets:
-        if strategy == "flat" or len(axes) == 1:
+    for b, strat in zip(buckets, plan, strict=True):
+        if strat == "flat" or len(axes) == 1:
             r = flat_allreduce(b, mesh, axes)
-        elif strategy == "hierarchical":
+        elif strat == "hierarchical":
             r = hierarchical_allreduce(b, mesh, intra_axis=axes[0],
                                        inter_axis=axes[-1])
-        else:
+        elif strat == "compressed":
             r = hierarchical_schedule(b, mesh, _compressed_inter,
                                       intra_axis=axes[0], inter_axis=axes[-1])
+        else:
+            raise ValueError(strat)
         out.append(r / mean_over)
     return unflatten_from_buckets(out, spec)
 
@@ -141,6 +190,128 @@ def _compressed_inter(shard: torch.Tensor, inter) -> torch.Tensor:
     ssum = combine_parts(all_gather_stack(scale.reshape(1), inter),
                          op="sum")[0] / m
     return qsum.float() * ssum
+
+
+# -------------------------------------------------------- program emission
+def emit_sync_program(nranks: int, bucket_bytes_list, *,
+                      compute_us_per_bucket=0.0, algo: str = "auto",
+                      overlap_depth: int = 0):
+    """Emit the train-step gradient-sync
+    :class:`repro_torch.core.program.Program` of a bucketed backward pass:
+    per bucket, the backward-compute slice that produces it, then its
+    allreduce.
+
+    This is the Layer-B tie-in to the workload simulator: run it through
+    :meth:`ExanetMPI.run_program` or :meth:`MachineModel.cost_program` and
+    the planner's per-bucket schedule choices (``algo="auto"``) plus the
+    compute/communication overlap of the bucket pipeline become
+    inspectable quantities instead of trace-time guesses.
+
+    ``bucket_bytes_list`` is the per-bucket byte count — e.g. the
+    ``numel() * element_size()`` of each bucket that
+    ``flatten_to_buckets(grads, n)`` returns — and
+    ``compute_us_per_bucket`` a scalar or per-bucket sequence of the
+    backward microseconds preceding each bucket's readiness.
+    ``overlap_depth > 0`` emits the allreduces *nonblocking*
+    (``Collective(handle=...)``): up to ``overlap_depth`` syncs ride
+    behind the following buckets' compute, each drained by a ``Wait``
+    that many buckets later, with a final ``Wait()`` at the end — the
+    overlap seam the train co-sim (DESIGN.md §2.9) searches over.  Pure
+    host code (no tensors): callable from tests without devices.
+    """
+    from repro_torch.core.program import Collective, Compute, Program, Wait
+    sizes = [int(b) for b in bucket_bytes_list]
+    try:
+        per_bucket = [float(c) for c in compute_us_per_bucket]
+    except TypeError:
+        per_bucket = [float(compute_us_per_bucket)] * len(sizes)
+    if len(per_bucket) != len(sizes):
+        raise ValueError(f"{len(sizes)} buckets but {len(per_bucket)} "
+                         f"compute entries")
+    ops = []
+    for i, (nb, us) in enumerate(zip(sizes, per_bucket)):
+        if us > 0.0:
+            ops.append(Compute(us))
+        if overlap_depth > 0:
+            ops.append(Collective("allreduce", max(nb, 1), algo,
+                                  handle=f"g{i}"))
+            if i - overlap_depth >= 0:
+                ops.append(Wait((f"g{i - overlap_depth}",)))
+        else:
+            ops.append(Collective("allreduce", max(nb, 1), algo))
+    if overlap_depth > 0:
+        ops.append(Wait())
+    return Program(tuple(tuple(ops) for _ in range(nranks)))
+
+
+# per-machine memo of cost_sync_program_s: the planner/hillclimb inner
+# loops hammer identical (nranks, bucket layout, algo) queries, and each
+# miss re-emits, re-probes and re-simulates a whole Program.  Weak keys:
+# a machine's entry dies with the machine.
+_sync_cost_cache: "weakref.WeakKeyDictionary" = None  # built on first use
+_sync_cost_stats = {"hits": 0, "misses": 0}
+
+
+def sync_cost_cache_info() -> dict:
+    """Hit/miss counters of the :func:`cost_sync_program_s` memo."""
+    size = 0
+    if _sync_cost_cache is not None:
+        size = sum(len(v) for v in _sync_cost_cache.values())
+    return {**_sync_cost_stats, "size": size}
+
+
+def clear_sync_cost_cache() -> None:
+    global _sync_cost_cache
+    _sync_cost_cache = None
+    _sync_cost_stats["hits"] = _sync_cost_stats["misses"] = 0
+
+
+def cost_sync_program_s(machine, nranks: int, bucket_bytes_list, *,
+                        compute_us_per_bucket=0.0, algo: str = "auto",
+                        overlap_depth: int = 0, fidelity: str = "sim",
+                        backend: str = "auto") -> float:
+    """Predicted seconds of one bucketed gradient sync on a machine: the
+    :func:`emit_sync_program` emission costed through
+    :meth:`MachineModel.cost_program`.  At ``sim`` fidelity on the ExaNeSt
+    machine, ``backend="auto"`` replays the bucket pipeline as a compiled
+    level program (collective sites splice their compiled round programs),
+    so sweeping bucket layouts is a batched array workload instead of
+    per-bucket event interpretation.  Results are memoized per
+    (machine, nranks, bucket tuple, compute tuple, algo, overlap depth,
+    fidelity, backend) — see :func:`sync_cost_cache_info`.  Pure
+    host code: no tensors, callable from tests without devices."""
+    import inspect
+    import weakref as _weakref
+    global _sync_cost_cache
+    sizes = tuple(int(b) for b in bucket_bytes_list)
+    try:
+        comp = tuple(float(c) for c in compute_us_per_bucket)
+    except TypeError:
+        comp = (float(compute_us_per_bucket),) * len(sizes)
+    key = (int(nranks), sizes, comp, algo, int(overlap_depth), fidelity,
+           backend)
+    if _sync_cost_cache is None:
+        _sync_cost_cache = _weakref.WeakKeyDictionary()
+    try:
+        per_machine = _sync_cost_cache.setdefault(machine, {})
+    except TypeError:                 # unhashable/unweakrefable machine
+        per_machine = None
+    if per_machine is not None and key in per_machine:
+        _sync_cost_stats["hits"] += 1
+        return per_machine[key]
+    _sync_cost_stats["misses"] += 1
+    prog = emit_sync_program(nranks, sizes, compute_us_per_bucket=comp,
+                             algo=algo, overlap_depth=overlap_depth)
+    kw = {"fidelity": fidelity}
+    # signature probe, not try/except TypeError: a genuine TypeError from
+    # inside a machine's sim path must surface, not trigger a silent
+    # backend-less recomputation
+    if "backend" in inspect.signature(machine.cost_program).parameters:
+        kw["backend"] = backend
+    out = machine.cost_program(prog, **kw)
+    if per_machine is not None:
+        per_machine[key] = out
+    return out
 
 
 class CompressedSync:

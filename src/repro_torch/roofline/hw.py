@@ -6,6 +6,13 @@ this one, and an :data:`H100` spec from NVIDIA's published figures for the
 H100 SXM5 80 GB (data sheet, dense rates without sparsity, at the full
 700 W power limit). A card set to a lower power limit runs slower under
 load; a bound computed from these figures is a bound at 700 W.
+
+:data:`V5E` is the reference's own TPU v5e spec, copied field for field.
+It is a constant of the reference's machine model, not a reading of any
+card: the port's collective planner (``TpuMachine`` in
+:mod:`repro_torch.core.machine`) prices the reference's mesh with it, so
+that it picks what the reference picks. No H100 bound or time is computed
+from it.
 """
 
 import dataclasses
@@ -46,3 +53,18 @@ H100 = HwSpec(
 #: H100 SXM5 float32 FLOP/s on the CUDA cores (FFMA, outside the tensor
 #: cores; TF32 is not float32)
 H100_PEAK_F32_FLOPS = 66.9e12
+
+#: the reference's TPU v5e spec (``repro.roofline.hw.V5E``), kept only as
+#: the machine-model constant its collective planner prices: ICI 50 GB/s a
+#: link, DCN 6.25 GB/s a chip. Not a reading of this or any card
+V5E = HwSpec(
+    name="tpu-v5e",
+    peak_bf16_flops=197e12,
+    hbm_bw=819e9,
+    hbm_bytes=16 * 2 ** 30,
+    ici_link_bw=50e9,
+    ici_links=4,
+    dcn_bw=6.25e9,   # ~50 Gb/s effective per-chip cross-pod budget
+    vmem_bytes=128 * 2 ** 20,
+    mxu_tile=128,
+)

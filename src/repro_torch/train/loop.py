@@ -22,11 +22,6 @@ from repro_torch.parallel.ctx import make_parallel_ctx
 from repro_torch.parallel.grad_sync import sync_gradients
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
-#: what ``sync_strategy="auto"`` waits for
-AUTO_SYNC_ITEM = ("the planner's strategy='auto' needs the port's copies of "
-                  "core/comm, core/machine and core/planner (ROADMAP.md "
-                  "queue 1 item 10)")
-
 
 def _value_and_grad(model, params, batch, pctx):
     leaves = [p.detach().requires_grad_(True)
@@ -86,15 +81,19 @@ class Trainer:
     With ``mesh`` set (a :class:`repro_torch.launch.mesh.ProcessMesh`),
     gradients are synchronized across its data-parallel axes each step via
     :func:`repro_torch.parallel.grad_sync.sync_gradients` and divided by the
-    DP world size (:meth:`make_sync`). ``sync_strategy`` is ``"flat"``,
-    ``"hierarchical"`` or ``"compressed"``; ``"auto"`` (the reference's default, which asks the
-    collective planner) raises ``NotImplementedError`` with a mesh: the
-    port never quietly picks another strategy."""
+    DP world size (:meth:`make_sync`). ``sync_strategy="auto"`` (the
+    default, as in the reference) lets the collective planner pick the
+    cheapest exact sync per bucket by predicted cost; ``"flat"``,
+    ``"hierarchical"`` and ``"compressed"`` name one for every bucket.
+    Lossy int8 compression is never chosen silently: opt in with
+    ``allow_lossy=True`` (and consider ``CompressedSync`` for error
+    feedback)."""
     model: Any
     opt_cfg: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
     pctx: Any = None
     mesh: Any = None
     sync_strategy: str = "auto"
+    allow_lossy: bool = False
     device: Any = None
 
     def init_state(self, gen: torch.Generator) -> dict:
@@ -103,20 +102,17 @@ class Trainer:
 
     def make_sync(self) -> Callable:
         """The mesh's gradient sync, grads -> grads: ``sync_gradients`` with
-        ``sync_strategy`` over the :class:`ParallelCtx` of the mesh, the sum
-        divided by its DP size."""
+        ``sync_strategy`` and ``allow_lossy`` over the :class:`ParallelCtx`
+        of the mesh, the sum divided by its DP size."""
         ctx = make_parallel_ctx(self.mesh)
         if not ctx.dp_axes:
             raise ValueError(
                 "Trainer(mesh=...) synchronizes over DP axes named "
                 f"'data'/'pod'; mesh has {self.mesh.axis_names}")
-        if self.sync_strategy == "auto":
-            raise NotImplementedError(
-                f"sync_strategy='auto' is not ported: {AUTO_SYNC_ITEM}; "
-                "pass 'flat', 'hierarchical' or 'compressed'")
         return functools.partial(sync_gradients, mesh=ctx.mesh,
                                  strategy=self.sync_strategy,
-                                 mean_over=ctx.dp_size)
+                                 mean_over=ctx.dp_size,
+                                 allow_lossy=self.allow_lossy)
 
     def make_step(self, sync_fn: Callable | None = None) -> Callable:
         """``fn(state, batch) -> (state, metrics)``. ``sync_fn`` replaces the

@@ -340,17 +340,23 @@ def test_prefetcher_yields_the_stream_in_order():
                                    td.batch_at(step)["tokens"], rtol=0, atol=0)
 
 
-def test_trainer_with_mesh_refuses_auto_strategy():
-    """``sync_strategy="auto"`` needs the planner (not ported): it raises,
-    naming the ROADMAP item, instead of becoming another strategy."""
+def test_trainer_with_mesh_builds_its_step_with_auto_strategy():
+    """With a mesh and the default ``sync_strategy="auto"`` the Trainer
+    builds its step: the sync asks the planner per bucket, exact only unless
+    ``allow_lossy`` (the 2x2 gloo run in test_torch_grad_sync.py drives
+    it)."""
 
     class TwoByTwo:
         axis_names = ("data", "pod")
         shape = {"data": 2, "pod": 2}
 
     _, tm, _, _ = _models("float32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        Trainer(tm, mesh=TwoByTwo()).make_step()
+    tr = Trainer(tm, mesh=TwoByTwo())
+    assert tr.sync_strategy == "auto" and tr.allow_lossy is False
+    assert callable(tr.make_step())
+    sync = tr.make_sync()
+    assert (sync.keywords["strategy"], sync.keywords["allow_lossy"],
+            sync.keywords["mean_over"]) == ("auto", False, 4)
 
 
 def test_quantized_launcher_run_on_cpu(tmp_path):
