@@ -144,12 +144,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             card could take for the variant that ran, and profiles both
             variants (device ms per launch of each of their CUDA kernels).
 12. ssm_train  Trainer.make_step on that model: batch 2 x seq 4096, 20
-            steps, AdamW lr 6e-4, SyntheticTokens seed 0, no checkpoint.
+            steps (SSM_TRAIN), AdamW lr 6e-4, SyntheticTokens seed 0, no
+            checkpoint.
             Checks every loss finite, the mean loss of 8 held-out batches
             falling by SSM_TRAIN's min_drop, and ssd_scan launched 64 x
             (forward + recompute) times per step, all through mma_sync;
             reports ms per step, tokens/s, peak memory.
-13. ssm_train_profile  2 of those steps under torch.profiler: device
+13. ssm_train_profile  1 more step under torch.profiler: device
             busy, kernels per step, top kernels, ssd_scan's share and
             device ms per launch.
 14. ssm_decode  prefill of 2 x 1023 tokens (a ragged length, through the
@@ -167,10 +168,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             at the hybrid's layer shape from its first layer's real inputs
             (mma_sync against ssd_chunked_tc and the float32 form, ffma
             against the float32 form, SSD_FULL_TOL), then ssm_train's run
-            and gates on it: 2 x 4096, 20 steps, the held-out drop, ssd_scan
-            launched 54 x (forward + recompute) = 108 times per step, all
-            mma_sync; ms per step, tokens/s, peak memory.
-16. hybrid_train_profile  2 steps under torch.profiler (device busy, top
+            and gates on it: 2 x 4096, 12 steps (HYBRID_TRAIN), the
+            held-out drop, ssd_scan launched 54 x (forward + recompute) =
+            108 times per step, all mma_sync; ms per step, tokens/s, peak
+            memory.
+16. hybrid_train_profile  1 step under torch.profiler (device busy, top
             kernels, ssd_scan's share and device ms per launch beside its
             bound at the hybrid's layer shape) and the plain
             flash_attention's share of a step at head dim 80, timed alone
@@ -183,6 +185,48 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             prefills by variant (mma_sync in bf16, ffma in float32), and
             the kernel against its plain version at FD_TOL on group 0's own
             bf16 cache (one row at 1024, one at 613).
+18. moe_train  full-width granite-moe-1b-a400m (LM with 24 MoE layers: 32
+            experts, top 8, expert FFN 512, 16 heads over 8 KV heads of 64;
+            bf16, random weights from torch.Generator seed 0, built by
+            Trainer.init_state after the hybrid is freed; _unported must
+            not refuse it): Trainer.make_step, batch 4 x seq 2048, 20 AdamW
+            steps, SyntheticTokens seed 0, gated on held-out batches as
+            ssm_train (MOE_TRAIN); every loss finite, no flash_decode
+            launch in training; ms per step, tokens/s, peak memory, and
+            the dropped share of routed slots per layer in steps 0 and 19
+            (moe.drop_log over the forward pass).
+19. moe_train_profile  1 more step under torch.profiler (shapes
+            recorded): device busy against wall, the top kernels, and
+            device time split by moe_profile_split into flash attention,
+            the expert bmms, the pack/un-pack scatters and gathers, the
+            rest of the MoE layer and everything else.
+20. moe_decode  batch 1: prefill of 511 tokens, one decode_step of token
+            512, against the last logits of the full 512-token prefill, in
+            bf16 and the float32 twin, gated as ssm_decode unless the full
+            prefill dropped a slot of the last token (both prefills have
+            expert capacity 200; the per-layer kept counts of the two
+            prefills say whether it did, and the line reports it);
+            flash_decode's (64, 64) instance launched 24 times (once per
+            layer) per decode_step; the kernel against its plain version at
+            FD_TOL on layer 0's own bf16 cache (the row at 512, and at 317).
+21. moe_serve  ServeEngine(slots=8, window=2048) on the trained weights, 16
+            requests of 64-1024 prompt tokens (numpy seed 0) and 32 new
+            tokens each: 16/16 done, tokens in the vocabulary, 24
+            flash_decode launches per decode_step; ms per decode_step and
+            tokens/s.
+22. moe_ep  expert parallelism over data on this one card: four processes
+            (spawn) on a 2x2 mesh (pod, data) over gloo, granite at full
+            width and 2 layers, a global batch of 8 x 512. all_to_all moves
+            bytes through host memory (gloo; staged explicitly). Checks (a)
+            each rank's apply_moe output on layer 0's normed input equals
+            emulate_ep (the same body, the all_to_all a transpose of the
+            stacked buffers) on the four ranks' gathered inputs bit for
+            bit, exact and (b) int8 (a2a_quant), and that two faults
+            planted in the emulated exchange (MOE_EP_FAULTS) read as
+            unequal; (c) two
+            Trainer.make_step steps with EP and the default "auto" sync:
+            losses finite, parameters bitwise equal across ranks after each
+            step, combine launched as the plan says.
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -199,6 +243,7 @@ import functools
 import gc
 import hashlib
 import json
+import math
 import re
 import shutil
 import socket
@@ -294,13 +339,19 @@ BUCKET_TOL = {"flat": 1e-5, "hierarchical": 1e-5, "compressed": 1e-6}
 DP_GRAD_TOL = {"plain": 1e-3, "single": 0.1}
 #: the Mamba-2 train phase. The loss gate reads the mean loss of 8 fixed
 #: held-out batches (steps eval_steps, never trained on) before and after
-#: the 20 steps: with 2 sequences per batch one batch's loss moves by up to
-#: 0.5 nats after a few steps, up or down, which hides the fall 20 steps
-#: give at full depth. lr 6e-4: at 3e-4 a held-out batch rose.
-#: min_drop is half the mean drop of the first run at lr 6e-4 (0.139 nats;
-#: every one of the 8 batches fell, by 0.053-0.180; PERF.md section 6).
+#: the steps, the schedule decayed over them: with 2 sequences per batch one
+#: batch's loss moves by up to 0.5 nats after a few steps, up or down,
+#: which hides the fall a few steps give at full depth. lr 6e-4: at 3e-4 a
+#: held-out batch rose. min_drop is half the mean drop of the first run at
+#: lr 6e-4 (0.139 nats; every one of the 8 batches fell, by 0.053-0.180).
+#: 20 steps: at 12 and 16 the drop is 0.078 and 0.083, one batch up by
+#: 0.25-0.32 nats, too near the gate; at 20, 0.146 (PERF.md section 2)
 SSM_TRAIN = dict(batch=2, seq=4096, steps=20, lr=6e-4, warmup=4,
                  eval_steps=(10_000, 10_008), min_drop=0.07)
+#: the hybrid train phase: SSM_TRAIN's gate on 12 steps, to keep the run
+#: short (drops 0.272 at 12 and 0.114 at 20 on an H100 80GB HBM3, 700 W;
+#: PERF.md section 2)
+HYBRID_TRAIN = dict(SSM_TRAIN, steps=12)
 #: mma_sync against ssd_chunked_tc, max|got - want| / max|want| over y and
 #: over the final state: both round at the same places; the cumsum's order
 #: and exp differ by a few float32 ulps, which now and then flips the bf16
@@ -323,6 +374,30 @@ SSD_FULL_TOL = {("mma_sync", "tc"): SSD_TC_TIGHT,
                 ("mma_sync", "bfloat16"): 1e-2,
                 ("mma_sync", "float32"): 6e-2,
                 ("ffma", "float32"): 1e-3}
+#: the granite-moe-1b-a400m phases. Training is batch 4 x 2048 (8192
+#: tokens a step, as the SSM cells), 20 AdamW steps, gated on held-out
+#: batches as SSM_TRAIN is (8 batches of 4 x 2048, never trained on).
+#: min_drop is SSM_TRAIN's; this model's fall was not known before its first
+#: run (PERF.md section 6)
+MOE_TRAIN = dict(batch=4, seq=2048, steps=20, lr=6e-4, warmup=4,
+                 eval_steps=(10_000, 10_008), min_drop=0.07)
+#: batch-1 decode against prefill: a 512-token prompt (both prefills, 511
+#: and 512 tokens, have an expert capacity of 200)
+MOE_DECODE_LEN = 512
+#: ... and at a capacity factor where no expert can fill: each token sends
+#: an expert at most one slot, and ceil(T * 8 / 32 * 2^2) = T slots hold
+#: all T tokens
+MOE_DECODE_NO_DROP_CF = 2.0
+#: expert parallelism on four ranks of this one card: full width at
+#: reduced depth, a global batch of 8 x 512
+MOE_EP = dict(world=4, mesh=(2, 2), n_layers=2, global_batch=8, seq=512,
+              steps=2)
+#: (a), (b): each rank's EP output must equal emulate_ep's on the four
+#: ranks' gathered inputs bit for bit: the two run the same body on the
+#: same bytes. Two faults planted in pod 0's emulated exchange (its two
+#: ranks' blocks swapped; one (token, choice) slot dropped) must each read
+#: as unequal; their max|got - want| / max|want| is reported
+MOE_EP_FAULTS = ("blocks_swapped", "one_slot_dropped")
 LINES: list[dict] = []
 
 
@@ -477,12 +552,14 @@ def ptxas_report(log: str) -> list[str]:
     return out
 
 
-def device_kernels(prof, steps: int) -> list[tuple[str, float, float]]:
+def device_kernels(prof, steps: int, skip: tuple[str, ...] = ()
+                   ) -> list[tuple[str, float, float]]:
     """(name, device ms per step, launches per step) of every CUDA-side
-    entry of the profile, longest first."""
+    entry of the profile, longest first; ``skip`` names profiler ranges
+    (record_function) whose device-side spans are not kernels."""
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in skip:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1596,10 +1673,11 @@ def ssd_checks(model, params, tokens) -> tuple[list[dict], tuple]:
     return results, (x, dt, A, B, C)
 
 
-def ssd_train_phase(phase: str, model, state, step_fn, data, smi: str,
-                    **extra) -> dict:
-    """SSM_TRAIN's steps of ``step_fn`` on a Mamba-2 model (the ssm_train
-    and hybrid_train phases): every loss finite, the mean loss of the
+def ssd_train_phase(phase: str, train: dict, model, state, step_fn, data,
+                    smi: str, **extra) -> dict:
+    """``train``'s steps (SSM_TRAIN, HYBRID_TRAIN) of ``step_fn`` on a
+    Mamba-2 model (the ssm_train and hybrid_train phases): every loss
+    finite, the mean loss of the
     held-out batches falling by min_drop, and ssd_scan launched (forward +
     recompute) once a layer each per step, all through mma_sync, counted
     from 0 over the steps. ``state`` (the train state dict) advances in
@@ -1609,7 +1687,7 @@ def ssd_train_phase(phase: str, model, state, step_fn, data, smi: str,
     from repro_torch import tree as tree_util
     from repro_torch.kernels.ssd_scan import kernel as sk
     cfg = model.cfg
-    held = [data.batch_at(i) for i in range(*SSM_TRAIN["eval_steps"])]
+    held = [data.batch_at(i) for i in range(*train["eval_steps"])]
 
     def held_loss(params):
         with torch.no_grad():
@@ -1622,7 +1700,7 @@ def ssd_train_phase(phase: str, model, state, step_fn, data, smi: str,
     sk.launches_by_variant.update(dict.fromkeys(sk.launches_by_variant, 0))
     losses, walls, per_step = [], [], []
     t_run = time.perf_counter()
-    for i in range(SSM_TRAIN["steps"]):
+    for i in range(train["steps"]):
         before = sk.launches
         t = time.perf_counter()
         new, metrics = step_fn(state, data.batch_at(i))
@@ -1639,17 +1717,17 @@ def ssd_train_phase(phase: str, model, state, step_fn, data, smi: str,
     held_after = held_loss(state["params"])
     drop = float(np.mean(held_before) - np.mean(held_after))
     steady_ms = float(np.mean(walls[1:])) * 1e3
-    tokens = SSM_TRAIN["batch"] * SSM_TRAIN["seq"]
+    tokens = train["batch"] * train["seq"]
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     want = 2 * cfg.n_layers
     line = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
             "params": sum(t.numel() for t in
                           tree_util.leaves(state["params"])),
-            "entry": "Trainer.make_step", **SSM_TRAIN, "losses": losses,
+            "entry": "Trainer.make_step", **train, "losses": losses,
             "first5_mean": first5, "last5_mean": last5,
             "held_out_losses_before": held_before,
             "held_out_losses_after": held_after, "held_out_mean_drop": drop,
-            "threshold": f"held_out_mean_drop >= {SSM_TRAIN['min_drop']}",
+            "threshold": f"held_out_mean_drop >= {train['min_drop']}",
             "wall_s": run_s, "step_wall_ms": [w * 1e3 for w in walls],
             "ms_per_step_wall": steady_ms,
             "tok_per_s": tokens / (steady_ms / 1e3), "peak_mem_GB": peak_gb,
@@ -1669,7 +1747,7 @@ def ssd_train_phase(phase: str, model, state, step_fn, data, smi: str,
     if not all(np.isfinite(losses + held_before + held_after)):
         raise AssertionError(f"a {phase} loss is not finite: {losses}, "
                              f"held-out {held_before} -> {held_after}")
-    if not drop >= SSM_TRAIN["min_drop"]:
+    if not drop >= train["min_drop"]:
         raise AssertionError(f"the {phase} loss did not fall: held-out "
                              f"batches {held_before} -> {held_after}")
     return line
@@ -1678,12 +1756,12 @@ def ssd_train_phase(phase: str, model, state, step_fn, data, smi: str,
 def ssd_train_profile(phase: str, state, step_fn, data, acts,
                       steady_ms: float, ssd_launches: int, smi: str,
                       **extra) -> None:
-    """2 more train steps under torch.profiler, ``state`` advanced in
+    """One more train step under torch.profiler, ``state`` advanced in
     place as in :func:`ssd_train_phase`: device busy against wall,
     kernels per step, the top kernels and ssd_scan's share, and its device
     time per launch over the ``ssd_launches`` a step makes. Emits the
     phase's line (with ``extra``)."""
-    n_prof = 2
+    n_prof = 1
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(n_prof):
@@ -1843,7 +1921,8 @@ def ssm_phases(smi: str, acts) -> dict:
 
     # ------------------------------------------------------- 12. ssm_train
     step_fn = tr.make_step()
-    train = ssd_train_phase("ssm_train", model, state, step_fn, data, smi)
+    train = ssd_train_phase("ssm_train", SSM_TRAIN, model, state, step_fn,
+                            data, smi)
     train_launches = train["ssd_scan_launches"]
     train_by_variant = train["ssd_scan_launches_by_variant"]
 
@@ -1983,28 +2062,29 @@ def hybrid_phases(smi: str, acts) -> dict:
     if not isinstance(model, HybridLM):
         raise AssertionError(f"build_model gave {type(model).__name__}")
     G = model.n_groups
-    tr = Trainer(model, AdamWConfig(lr=SSM_TRAIN["lr"],
-                                    warmup_steps=SSM_TRAIN["warmup"],
-                                    decay_steps=SSM_TRAIN["steps"]),
+    tr = Trainer(model, AdamWConfig(lr=HYBRID_TRAIN["lr"],
+                                    warmup_steps=HYBRID_TRAIN["warmup"],
+                                    decay_steps=HYBRID_TRAIN["steps"]),
                  device="cuda")
     t0 = time.perf_counter()
     state = tr.init_state(torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    data = SyntheticTokens(cfg, batch=SSM_TRAIN["batch"],
-                           seq=SSM_TRAIN["seq"], seed=0, device="cuda")
+    data = SyntheticTokens(cfg, batch=HYBRID_TRAIN["batch"],
+                           seq=HYBRID_TRAIN["seq"], seed=0, device="cuda")
 
     # ---------------------------------------------------- 15. hybrid_train
     ssd_checks = hybrid_ssd_checks(model, state["params"],
                                    data.batch_at(0)["tokens"])
     step_fn = tr.make_step()
-    train = ssd_train_phase("hybrid_train", model, state, step_fn, data,
-                            smi, groups=G, group_size=model.group_size,
-                            init_state_s=init_s, ssd_checks=ssd_checks)
+    train = ssd_train_phase("hybrid_train", HYBRID_TRAIN, model, state,
+                            step_fn, data, smi, groups=G,
+                            group_size=model.group_size, init_state_s=init_s,
+                            ssd_checks=ssd_checks)
     ssd_entry = {"path": "hybrid_train",
                  "launches": train["ssd_scan_launches"],
                  "launches_per_train_step":
-                     train["ssd_scan_launches"] / SSM_TRAIN["steps"],
+                     train["ssd_scan_launches"] / HYBRID_TRAIN["steps"],
                  "launches_by_variant": train["ssd_scan_launches_by_variant"],
                  "checks": ssd_checks}
 
@@ -2012,7 +2092,7 @@ def hybrid_phases(smi: str, acts) -> dict:
     # the shared block's attention (plain flash_attention, 32 heads of 80)
     # timed alone at the step's shape: per use a forward, its recompute in
     # backward and the backward, times the G uses (wall, host included)
-    B, S = SSM_TRAIN["batch"], SSM_TRAIN["seq"]
+    B, S = HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"]
     hd = cfg.resolved_head_dim
     g = torch.Generator("cuda").manual_seed(71)
     qkv = [torch.randn((B, S, n, hd), device="cuda", generator=g)
@@ -2132,6 +2212,653 @@ def hybrid_phases(smi: str, acts) -> dict:
                 "launches_per_decode_step": fd16, "head_dim": hd,
                 "max_abs_err": line["group0_cache_check"]["max_err"],
                 "reading": cache_reading}}
+
+
+# ------------------------------------------------------------- MoE phases
+def moe_profile_split(prof, steps: int, n_experts: int,
+                      attr: str = "self_device_time_total") -> dict:
+    """Device ms per step of the MoE train step's parts, from the profile's
+    op tree (``record_shapes`` on; the step run with ``apply_moe`` and
+    ``flash_attention`` inside ranges of their names). Each op's own kernel
+    time goes to the first rule it meets, walking from the op up its
+    ancestors: ``flash_attention`` (its range in forward and recompute, its
+    ``_FlashBackward`` node); ``expert_bmm`` (an ``aten::bmm`` whose first
+    input holds ``n_experts`` matrices: forward, recompute and backward);
+    ``pack_unpack`` (index, index_put, gather, scatter, cumsum and one_hot
+    ops inside the ``apply_moe`` range, and the ``IndexBackward0`` and
+    ``IndexPutBackward0`` nodes, whose kernels are their adjoints; the
+    embedding's gather backward is one of the latter); ``moe_other`` (the
+    rest inside the range: router, sort, where, the activation, the
+    combine's adds); ``other`` (everything else: projections, norms,
+    lm_loss, the rest of the backward, AdamW). ``attr`` is the time read
+    (device time; the CPU tests read CPU time)."""
+    index_ops = ("aten::index", "aten::index_put", "aten::gather",
+                 "aten::scatter", "aten::cumsum", "aten::one_hot")
+    parts = dict.fromkeys(("flash_attention", "expert_bmm", "pack_unpack",
+                           "moe_other", "other"), 0.0)
+
+    def part_of(e) -> str:
+        in_moe = False
+        node = e
+        while node is not None:
+            name = node.name
+            if name == "flash_attention" or name.endswith(": _FlashBackward"):
+                return "flash_attention"
+            if name == "aten::bmm" and node.input_shapes and \
+                    node.input_shapes[0][:1] == [n_experts]:
+                return "expert_bmm"
+            if name == "moe.apply_moe":
+                in_moe = True
+                break
+            if name.startswith("autograd::engine::evaluate_function: "):
+                if name.endswith((": IndexBackward0", ": IndexPutBackward0")):
+                    return "pack_unpack"
+                return "other"
+            node = node.cpu_parent
+        if in_moe:
+            node = e
+            while node is not None and node.name != "moe.apply_moe":
+                if node.name.startswith(index_ops):
+                    return "pack_unpack"
+                node = node.cpu_parent
+            return "moe_other"
+        return "other"
+
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or \
+                e.name in MOE_LABELS:
+            continue                 # a range's own time is its span
+        us = getattr(e, attr)
+        if us > 0:
+            parts[part_of(e)] += us / 1e3 / steps
+    return parts
+
+
+#: the profiler ranges the moe_train_profile phase puts around the MoE layer
+#: and flash attention
+MOE_LABELS = ("moe.apply_moe", "flash_attention")
+
+
+def _labelled(fn, label: str):
+    """``fn`` inside a profiler range named ``label``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return run
+
+
+def logged_prefill(model, params, tokens):
+    """``model.prefill`` with ``moe.drop_log`` on: (logits, caches, the
+    slots each MoE layer's experts kept, in layer order)."""
+    from repro_torch.models import moe
+    moe.drop_log = []
+    try:
+        with torch.no_grad():
+            lg, caches = model.prefill(params, {"tokens": tokens})
+        log = moe.drop_log
+    finally:
+        moe.drop_log = None
+    return lg, caches, [(routed, int(kept)) for routed, kept in log]
+
+
+def _gather_cpu(t: torch.Tensor) -> list[torch.Tensor]:
+    """Every rank's ``t`` (one shape on all ranks), in rank order, back on
+    ``t``'s device: all_gather of its bytes through host memory."""
+    import torch.distributed as dist
+    b = t.detach().contiguous().cpu().view(torch.uint8)
+    out = [torch.empty_like(b) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, b)
+    return [o.view(t.dtype).to(t.device) for o in out]
+
+
+def ep_planted(moe, p, xs, cfg, want) -> dict:
+    """Pod 0's data group run as ``moe.emulate_ep`` runs it, with a fault
+    planted in its exchange (MOE_EP_FAULTS), against ``want`` (emulate_ep
+    on ``xs``, the four ranks' rows): per fault, whether the two are equal
+    bit for bit and max|got - want| / max|want|. The exchange is a
+    transpose of the (ranks, ep, cap, ...) buffers, as in emulate_ep."""
+    B, S, d = xs.shape
+    xt = xs.reshape(2, 2, -1, d)[0]             # pod 0: ranks 0 and 1
+    want0 = want[:B // 2].reshape(xt.shape)
+
+    def swapped(t):          # each rank's two received blocks change places
+        return t.transpose(0, 1).flip(1).contiguous()
+
+    def dropped(t):          # the first slot rank 1 sends rank 0 arrives
+        t = t.transpose(0, 1).contiguous()     # marked empty (metadata 0)
+        if t.dtype == torch.int64:
+            t[0, 1, 0] = 0
+        return t
+
+    out = {}
+    for name, fn in zip(MOE_EP_FAULTS, (swapped, dropped)):
+        y = moe._moe_body(xt, p["router"], p["w_gate"], p["w_up"],
+                          p["w_out"], cfg, fn)
+        err = (y.float() - want0.float()).abs().max().item()
+        out[name] = {"bitwise_equal": bool(torch.equal(y, want0)),
+                     "rel_err": err / want0.float().abs().max().item()}
+    return out
+
+
+def moe_ep_worker(rank: int, port: int, out_dir: str) -> None:
+    """One rank of the moe_ep phase (run by torch.multiprocessing, spawn)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.allreduce_combine import kernel as ck
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    from repro_torch.parallel.ctx import make_parallel_ctx
+    from repro_torch.parallel.grad_sync import (combine_launches_per_sync,
+                                                plan_buckets)
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    world = MOE_EP["world"]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_mesh(MOE_EP["mesh"], ("pod", "data"), device=dev)
+        pctx = make_parallel_ctx(mesh)
+        cfg = dataclasses.replace(get("granite-moe-1b-a400m"),
+                                  n_layers=MOE_EP["n_layers"])
+        model = build_model(cfg)
+        tr = Trainer(model, AdamWConfig(lr=6e-4, warmup_steps=1,
+                                        decay_steps=10),
+                     pctx=pctx, mesh=mesh, device=dev)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        data = SyntheticTokens(cfg, batch=MOE_EP["global_batch"],
+                               seq=MOE_EP["seq"], device=dev)
+        per = MOE_EP["global_batch"] // world
+
+        def local(i):
+            return {k: v[rank * per:(rank + 1) * per]
+                    for k, v in data.batch_at(i).items()}
+
+        rec: dict = {"rank": rank, "coords": mesh.coords,
+                     "ep_size": moe.ep_size(pctx, cfg), "checks": {},
+                     "steps": {}}
+        # (a), (b): layer 0's MoE layer on its normed input
+        layer0 = tree_util.tree_map(lambda t: t[0],
+                                    state["params"]["moe_stack"])
+        x = apply_norm(layer0["ln2"], embed_tokens(
+            state["params"]["embed"], local(0)["tokens"], cfg), cfg)
+        xs = torch.cat(_gather_cpu(x))
+        for label, quant in (("exact", False), ("int8", True)):
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, a2a_quant=quant))
+            with torch.no_grad():
+                moe.apply_moe(layer0["ffn"], x, c, pctx)       # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = moe.apply_moe(layer0["ffn"], x, c, pctx)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ys = torch.cat(_gather_cpu(y))
+                if rank == 0:
+                    want = moe.emulate_ep(layer0["ffn"], xs, c, ep=2, pods=2)
+                    err = (ys.float() - want.float()).abs().max().item()
+                    rel = err / want.float().abs().max().item()
+                    planted = ep_planted(moe, layer0["ffn"], xs, c, want)
+                    tok = x.shape[0] * x.shape[1]
+                    cap = max(1, math.ceil(tok * c.moe.top_k / 2
+                                           * c.moe.capacity_factor))
+                    slot = c.d_model * (1 if quant else 2) + (4 if quant
+                                                              else 0)
+                    equal = bool(torch.equal(ys, want))
+                    rec["checks"][label] = {
+                        "max_abs_err": err, "rel_err": rel,
+                        "bitwise_equal": equal, "planted": planted,
+                        "ok": bool(equal and not any(
+                            f["bitwise_equal"] for f in planted.values())),
+                        "layer_wall_ms_rank0": wall * 1e3,
+                        "wire_bytes_per_layer_forward_rank0":
+                            2 * 2 * cap * slot}
+        del xs
+        # (c): two Trainer steps with EP, the default "auto" sync
+        plan = plan_buckets(state["params"], mesh)
+        want_launches = combine_launches_per_sync(mesh, plan)
+        rec["plan"] = dict(collections.Counter(plan))
+        step = tr.make_step()
+        for i in range(MOE_EP["steps"]):
+            torch.cuda.synchronize()
+            ck.launches = 0
+            t0 = time.perf_counter()
+            state, m = step(state, local(i))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ck.launches
+            losses = [None] * world
+            dist.all_gather_object(losses, float(m["loss"]))
+            digests = [None] * world
+            dist.all_gather_object(digests, _digest(state["params"]))
+            rec["steps"][str(i)] = {
+                "combine_launches": launches, "expected": want_launches,
+                "losses": losses, "wall_s": wall,
+                "params_equal_across_ranks": len(set(digests)) == 1}
+        (Path(out_dir) / f"moe_ep_rank{rank}.json").write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_phases(smi: str, acts) -> dict:
+    """Phases 18-22 on full-width granite-moe-1b-a400m (LM with 24 MoE
+    layers); returns its readings of flash_decode and combine for the
+    kernels line."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.allreduce_combine import kernel as ck
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ops import decode_attn
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.models import LM, build_model, moe
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import _unported
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get("granite-moe-1b-a400m")
+    why = _unported(cfg)
+    model = build_model(cfg)
+    if why is not None or not isinstance(model, LM):
+        raise AssertionError(f"granite: _unported says {why!r}, build_model "
+                             f"gave {type(model).__name__}")
+    L, k = cfg.n_layers, cfg.moe.top_k
+    mt = MOE_TRAIN
+    tr = Trainer(model, AdamWConfig(lr=mt["lr"], warmup_steps=mt["warmup"],
+                                    decay_steps=mt["steps"]), device="cuda")
+    t0 = time.perf_counter()
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_util.leaves(state["params"]))
+    data = SyntheticTokens(cfg, batch=mt["batch"], seq=mt["seq"], seed=0,
+                           device="cuda")
+    held = [data.batch_at(i) for i in range(*mt["eval_steps"])]
+
+    def held_loss(params):
+        with torch.no_grad():
+            return [float(model.loss_fn(params, b)) for b in held]
+
+    # ------------------------------------------------------ 18. moe_train
+    held_before = held_loss(state["params"])
+    step_fn = tr.make_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd.launches = 0
+    losses, walls, dropped = [], [], {}
+    t_run = time.perf_counter()
+    for i in range(mt["steps"]):
+        record = i in (0, mt["steps"] - 1)
+        if record:
+            moe.drop_log = []
+        t = time.perf_counter()
+        new, metrics = step_fn(state, data.batch_at(i))
+        state.update(new)
+        del new
+        losses.append(float(metrics["loss"]))       # waits for the step
+        walls.append(time.perf_counter() - t)
+        if record:
+            log, moe.drop_log = moe.drop_log, None
+            if len(log) != 2 * L:
+                raise AssertionError(f"{len(log)} MoE layer calls in a "
+                                     f"step; expected {L} x (forward + "
+                                     "recompute)")
+            # the forward, layer by layer (the recompute follows in reverse)
+            dropped[i] = [1 - int(kept) / routed for routed, kept in log[:L]]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    train_fd = fd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held_after = held_loss(state["params"])
+    drop = float(np.mean(held_before) - np.mean(held_after))
+    steady_ms = float(np.mean(walls[1:])) * 1e3
+    tokens = mt["batch"] * mt["seq"]
+    first, last = min(dropped), max(dropped)
+    emit({"phase": "moe_train", "arch": cfg.name, "dtype": cfg.dtype,
+          "params": n_params, "entry": "Trainer.make_step", **mt,
+          "experts": cfg.moe.n_experts, "top_k": k,
+          "unported": why, "losses": losses,
+          "first5_mean": float(np.mean(losses[:5])),
+          "last5_mean": float(np.mean(losses[-5:])),
+          "held_out_losses_before": held_before,
+          "held_out_losses_after": held_after, "held_out_mean_drop": drop,
+          "threshold": f"held_out_mean_drop >= {mt['min_drop']}",
+          "wall_s": run_s, "init_state_s": init_s,
+          "step_wall_ms": [w * 1e3 for w in walls],
+          "ms_per_step_wall": steady_ms,
+          "tok_per_s": tokens / (steady_ms / 1e3), "peak_mem_GB": peak_gb,
+          "dropped_share_per_layer": {f"step{first}": dropped[first],
+                                      f"step{last}": dropped[last]},
+          "dropped_share_mean": {f"step{first}": float(np.mean(
+              dropped[first])), f"step{last}": float(np.mean(dropped[last]))},
+          "flash_decode_launches": train_fd, "card": smi})
+    if train_fd:
+        raise AssertionError(f"flash_decode launched {train_fd} times in "
+                             "training")
+    if not all(np.isfinite(losses + held_before + held_after)):
+        raise AssertionError(f"a moe_train loss is not finite: {losses}, "
+                             f"held-out {held_before} -> {held_after}")
+    if not drop >= mt["min_drop"]:
+        raise AssertionError(f"the moe_train loss did not fall: held-out "
+                             f"batches {held_before} -> {held_after}")
+
+    # ---------------------------------------------- 19. moe_train_profile
+    n_prof = 1
+    saved = moe.apply_moe, attn_mod.flash_attention
+    moe.apply_moe = _labelled(saved[0], "moe.apply_moe")
+    attn_mod.flash_attention = _labelled(saved[1], "flash_attention")
+    try:
+        with torch.profiler.profile(activities=acts,
+                                    record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            for i in range(n_prof):
+                state.update(step_fn(state, data.batch_at(100 + i))[0])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        moe.apply_moe, attn_mod.flash_attention = saved
+    kernels = device_kernels(prof, n_prof, skip=MOE_LABELS)
+    split = moe_profile_split(prof, n_prof, cfg.moe.n_experts)
+    del prof
+    busy = sum(ms for _, ms, _ in kernels)
+    wall_ms = prof_wall / n_prof * 1e3
+    emit({"phase": "moe_train_profile", "steps": n_prof,
+          "ms_per_step_wall_profiled": wall_ms,
+          "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall_ms,
+          "idle_share_vs_unprofiled_wall": 1 - busy / steady_ms,
+          "kernels_per_step": sum(n_ for *_, n_ in kernels),
+          "split_ms_per_step": split,
+          "split_share_of_busy": {p: ms / busy for p, ms in split.items()},
+          "split_attributed_ms": sum(split.values()),
+          "split_rules": "moe_profile_split's docstring",
+          "top": [[name[:80], ms, n_] for name, ms, n_ in kernels[:15]],
+          "card": smi})
+
+    # ---------------------------------------------------- 20. moe_decode
+    # batch 1: prefill(S-1) then decode equals prefill(S) when both
+    # prefills give the experts the same capacity (MOE_DECODE_LEN) and
+    # prefill(S) kept every slot of the last token; the two prefills' kept
+    # counts (moe.drop_log) tell whether it did
+    params = state["params"]
+    del state, step_fn, tr, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    S = MOE_DECODE_LEN
+    toks = data.batch_at(300)["tokens"][:1, :S]
+    params32 = tree_util.tree_map(lambda t: t.float(), params)
+
+    def decode_vs_prefill(c, p):
+        """(full logits, decode logits, caches, flash_decode launches of
+        the decode_step, the last token's kept slots per layer, whether
+        either prefill dropped a slot) of the model of config ``c`` on
+        parameters ``p``. The last token's kept slots are kept(S) -
+        kept(S-1): its own where tokens 0..S-2 route alike in both
+        prefills (float32; bf16 products round otherwise at the two
+        shapes, and a route can flip at a near-tie)."""
+        m = build_model(c)
+        full, _, log_full = logged_prefill(m, p, toks)
+        _, caches, log_short = logged_prefill(m, p, toks[:, :S - 1])
+        if len(log_full) != L or len(log_short) != L:
+            raise AssertionError(f"{len(log_full)} / {len(log_short)} MoE "
+                                 f"layer calls in a prefill; expected {L}")
+        cache = m.init_cache(1, S, device="cuda")
+        for name in ("k", "v"):
+            cache["moe"][name][:, :, :S - 1] = caches["moe"][name]
+        del caches
+        before = fd.launches
+        with torch.no_grad():
+            lg, _ = m.decode_step(p, cache, {"token": toks[:, S - 1],
+                                             "pos": torch.tensor(S - 1)})
+        torch.cuda.synchronize()
+        last_kept = [a - b for (_, a), (_, b) in zip(log_full, log_short)]
+        any_drop = any(kept != routed for routed, kept in log_full + log_short)
+        return full, lg, cache, fd.launches - before, last_kept, any_drop
+
+    cf_runs, layer0 = {}, None
+    for cf in (cfg.moe.capacity_factor, MOE_DECODE_NO_DROP_CF):
+        c16 = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        c32 = dataclasses.replace(c16, dtype="float32")
+        full16, lg16, cache16, fd16, kept16, any16 = decode_vs_prefill(
+            c16, params)
+        if layer0 is None:
+            layer0 = (cache16["moe"]["k"][0].clone(),
+                      cache16["moe"]["v"][0].clone())
+        del cache16
+        full32, lg32, cache32, fd32, kept32, any32 = decode_vs_prefill(
+            c32, params32)
+        del cache32
+        agree, readings = decode_readings(full16, lg16, full32, lg32)
+        dropped = any(n != k for n in kept16 + kept32)
+        cf_runs[str(cf)] = {
+            "decode_agrees": agree, **readings,
+            "last_token_dropped": dropped,
+            "last_token_slots_kept_per_layer": {"bfloat16": kept16,
+                                                "float32": kept32},
+            "a_prefill_dropped_a_slot": {"bfloat16": any16,
+                                         "float32": any32},
+            "flash_decode_launches_per_decode_step": {"bfloat16": fd16,
+                                                      "float32": fd32},
+            "ok": bool((agree or dropped)
+                       and fd16 == L and fd32 == L
+                       and torch.isfinite(lg16).all().item()
+                       and torch.isfinite(lg32).all().item())}
+        del full16, full32, lg16, lg32
+    del params32
+    # the kernel against its plain version on layer 0's own bf16 cache, the
+    # row at its full length and again ragged
+    kk, vv = (torch.cat([t, t]) for t in layer0)
+    lengths = torch.tensor([S, 317], dtype=torch.int32, device="cuda")
+    hd = cfg.resolved_head_dim
+    q0 = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, cfg.n_heads, hd), np.float32)).cuda().bfloat16()
+    before_check = fd.launches
+    got = decode_attn(q0, kk, vv, lengths)
+    want = decode_attention_ref(q0, kk, vv, lengths)
+    torch.cuda.synchronize()
+    cache_reading = fd_reading(got, want)
+    no_drop = cf_runs[str(MOE_DECODE_NO_DROP_CF)]
+    ok = (all(r["ok"] for r in cf_runs.values())
+          and not any(no_drop["a_prefill_dropped_a_slot"].values())
+          and not no_drop["last_token_dropped"] and no_drop["decode_agrees"]
+          and fd.launches == before_check + 1 and cache_reading <= 1)
+    fd_decode = sum(sum(r["flash_decode_launches_per_decode_step"].values())
+                    for r in cf_runs.values())
+    line = {"phase": "moe_decode", "arch": cfg.name, "batch": 1,
+            "prefill_len": S - 1, "full_len": S,
+            "by_capacity_factor": cf_runs,
+            "gate": "decode_agrees (as ssm_decode) unless the full prefill "
+                    "dropped a slot of the last token (kept(S) - kept(S-1) "
+                    "< top_k in a layer); at capacity factor "
+                    f"{MOE_DECODE_NO_DROP_CF} no expert can fill: neither "
+                    "prefill may drop a slot, and decode must agree",
+            "expected_per_decode_step": f"{L} (one per layer), (64, 64)",
+            "layer0_cache_check": {
+                "shape": [2, cfg.n_heads, cfg.n_kv_heads, hd, hd, S],
+                "lengths": lengths.tolist(),
+                "max_err": (got.float() - want.float()).abs().max().item(),
+                "reading": cache_reading, "tol": FD_TOL_TEXT},
+            "ok": ok, "card": smi}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"moe decode: {cf_runs}; layer-0 cache "
+                             f"reading {cache_reading}")
+    del kk, vv, layer0
+
+    # ----------------------------------------------------- 21. moe_serve
+    warm = ServeEngine(model, params, slots=2, window=64, device="cuda")
+    warm.submit([1, 2, 3], max_new_tokens=2)
+    warm.run_until_idle()
+    del warm
+    eng = ServeEngine(model, params, slots=8, window=2048, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, 1025, 16)]
+    torch.cuda.synchronize()
+    fd.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    eng.run_until_idle(max_steps=16)          # mid-decode of the first wave
+    k0 = eng.cache["moe"]["k"][0].clone()
+    v0 = eng.cache["moe"]["v"][0].clone()
+    pos0 = eng.pos.copy()
+    eng.run_until_idle(max_steps=100000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_fd, calls = fd.launches, eng.decode_calls
+    outs = [eng.result(r) for r in rids]
+    done = sum(o is not None and len(o) == 32 for o in outs)
+    n_tok = sum(len(o or []) for o in outs)
+    prompt_tok = sum(len(p) for p in prompts)
+    # the kernel against its plain version at the shape the engine gives
+    # it: layer 0's cache (8, 2048, 8, 64) mid-run, group size 2, the
+    # engine's ragged lengths
+    lens0 = torch.from_numpy(
+        np.minimum(pos0 + 1, 2048).astype(np.int32)).cuda()
+    q_serve = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (8, cfg.n_heads, hd), np.float32)).cuda().bfloat16()
+    got = decode_attn(q_serve, k0, v0, lens0)
+    want = decode_attention_ref(q_serve, k0, v0, lens0)
+    serve_check = {"shape": [8, cfg.n_heads, cfg.n_kv_heads, hd, hd, 2048],
+                   "lengths": lens0.cpu().tolist(),
+                   "max_err": (got.float() - want.float()).abs().max().item(),
+                   "reading": fd_reading(got, want), "tol": FD_TOL_TEXT}
+    del k0, v0, got, want
+    # where a decode_step's time goes: the engine's call on its cache at
+    # the mid-run positions, logits back to the host, traced
+    batch = {"token": torch.zeros(8, dtype=torch.int32, device="cuda"),
+             "pos": torch.from_numpy(pos0).cuda()}
+
+    def one_step():
+        with torch.no_grad():
+            lg, _ = model.decode_step(params, eng.cache, batch)
+        lg[:, 0].float().cpu()
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    n_prof = 8
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            one_step()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernels = device_kernels(prof, n_prof)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n_prof,
+                    e.count / n_prof) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda x: -x[1])
+    del prof
+    busy = sum(ms for _, ms, _ in kernels)
+    step_ms = prof_wall / n_prof * 1e3
+    emit({"phase": "moe_serve", "arch": cfg.name, "dtype": cfg.dtype,
+          "weights": "after moe_train's 20 steps and the profile's",
+          "slots": 8, "window": 2048,
+          "requests": 16, "done": done, "prompt_tokens": prompt_tok,
+          "new_tokens": n_tok, "decode_step_calls": calls,
+          "flash_decode_launches": serve_fd, "wall_s": wall,
+          "ms_per_decode_step": wall / calls * 1e3,
+          "tok_per_s": (prompt_tok + n_tok) / wall,
+          "new_tok_per_s": n_tok / wall,
+          "engine_cache_check": serve_check,
+          "first_tokens": outs[0][:8] if outs[0] else None,
+          "decode_step_profile": {
+              "steps": n_prof, "ms_per_step_wall_profiled": step_ms,
+              "device_busy_ms_per_step": busy,
+              "idle_share": 1 - busy / step_ms,
+              "kernels_per_step": sum(n_ for *_, n_ in kernels),
+              "top": [[name[:80], ms, n_] for name, ms, n_ in kernels[:8]],
+              "host_top_self_ms": [[name[:60], ms, n_]
+                                   for name, ms, n_ in host[:10]]},
+          "card": smi})
+    if done != 16:
+        raise AssertionError(f"moe_serve: served {done}/16 requests")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError("moe_serve: a token lies outside the vocabulary")
+    if serve_fd != L * calls or calls == 0:
+        raise AssertionError(f"moe_serve: flash_decode launched {serve_fd} "
+                             f"times over {calls} decode_step calls; "
+                             f"expected {L} per call")
+    if not serve_check["reading"] <= 1:
+        raise AssertionError(f"moe_serve: flash_decode on the engine's cache: "
+                             f"reading {serve_check['reading']} > 1 "
+                             f"({FD_TOL_TEXT})")
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- 22. moe_ep
+    for f in OUT.glob("moe_ep_rank*.json"):
+        f.unlink()
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        moe_ep_worker, args=(free_port(), str(OUT)), nprocs=MOE_EP["world"],
+        join=True, start_method="spawn")
+    ep_wall = time.perf_counter() - t0
+    ranks = [json.loads((OUT / f"moe_ep_rank{r}.json").read_text())
+             for r in range(MOE_EP["world"])]
+    r0 = ranks[0]
+    ep_launches = sum(s["combine_launches"] for s in r0["steps"].values())
+    emit({"phase": "moe_ep", "arch": cfg.name,
+          "reduced": f"n_layers={MOE_EP['n_layers']} (full width)",
+          "mesh": {"pod": 2, "data": 2}, "backend": "gloo",
+          "device_per_rank": "cuda:0",
+          "transport": "all_to_all stages CUDA tensors through host memory "
+                       "explicitly (moe.all_to_all), as bytes; the "
+                       "gradient sync as the dp phase's",
+          "global_batch": MOE_EP["global_batch"], "seq": MOE_EP["seq"],
+          "ep_size": [r["ep_size"] for r in ranks],
+          "coords": [r["coords"] for r in ranks],
+          "emulation_checks": r0["checks"], "plan": r0["plan"],
+          "steps": {r["rank"]: r["steps"] for r in ranks},
+          "combine_launches_rank0": ep_launches, "wall_s": ep_wall,
+          "card": smi})
+    bad = [label for label, c in r0["checks"].items() if not c["ok"]]
+    if bad or sorted(r0["checks"]) != ["exact", "int8"]:
+        raise AssertionError(f"moe_ep: EP against emulate_ep failed {bad}: "
+                             f"{r0['checks']}")
+    if any(r["ep_size"] != 2 for r in ranks):
+        raise AssertionError("moe_ep: a rank did not run EP over data")
+    for r in ranks:
+        for i, s in r["steps"].items():
+            if s["combine_launches"] != s["expected"]:
+                raise AssertionError(f"moe_ep rank {r['rank']} step {i}: "
+                                     f"{s['combine_launches']} combine "
+                                     f"launches, expected {s['expected']}")
+            if not s["params_equal_across_ranks"]:
+                raise AssertionError(f"moe_ep step {i}: parameters differ "
+                                     "across ranks")
+            if not all(np.isfinite(s["losses"])):
+                raise AssertionError(f"moe_ep step {i}: losses {s['losses']}")
+    if ep_launches == 0:
+        raise AssertionError("combine never launched on the moe_ep path")
+    return {"flash_decode": {
+                "path": "moe_serve", "launches": serve_fd,
+                "launches_per_decode_step": serve_fd / calls,
+                "decode_check_launches": fd_decode,
+                "max_abs_err": serve_check["max_err"],
+                "reading": serve_check["reading"],
+                "checked_on": "moe_serve's layer-0 cache, "
+                              f"lengths {serve_check['lengths']}",
+                "moe_decode_check": {
+                    "max_abs_err": line["layer0_cache_check"]["max_err"],
+                    "reading": cache_reading}},
+            "combine": {"path": "moe_ep (rank 0)", "launches": ep_launches,
+                        "launches_per_synced_step":
+                            ep_launches / MOE_EP["steps"]}}
 
 
 def free_port() -> int:
@@ -2576,6 +3303,12 @@ def main() -> int:
     hybrid = hybrid_phases(smi, acts)
     ssd_entry["hybrid"] = hybrid["ssd_scan"]
 
+    # -------------------------------------------------- 18-22. MoE phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe_readings = moe_phases(smi, acts)
+
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -2587,7 +3320,7 @@ def main() -> int:
         "library_ms": fd_serve["library_ms"], "tol": FD_TOL_TEXT,
         "max_reading": max(r["reading"] for r in results), "path": "serve",
         "launches_per_decode_step": launches / calls,
-        "hybrid": hybrid["flash_decode"],
+        "hybrid": hybrid["flash_decode"], "moe": moe_readings["flash_decode"],
         "long": {x: timings["long"][x] for x in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
             "library_ms", "share_of_bound")}}, {
@@ -2597,7 +3330,8 @@ def main() -> int:
         "bound_ms": c_bound_ms,
         "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
         "library_ms": c_lib_ms, "tol": 1e-2, "path": "dp (rank 0)",
-        "launches_per_synced_step": dp_launches / max(dp_steps, 1)},
+        "launches_per_synced_step": dp_launches / max(dp_steps, 1),
+        "moe_ep": moe_readings["combine"]},
         ssd_entry, mm_entry]})
     (OUT / "chip_smoke.json").write_text(json.dumps(LINES, indent=1))
     print(smi, flush=True)

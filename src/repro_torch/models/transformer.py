@@ -1,7 +1,7 @@
-"""Decoder-only dense LM, the Mamba-2 LM and the Zamba2-style hybrid:
-training (``loss_fn``), prefill and decode.
+"""Decoder-only dense and MoE LM, the Mamba-2 LM and the Zamba2-style
+hybrid: training (``loss_fn``), prefill and decode.
 
-Counterpart of the dense, SSM and hybrid branches of
+Counterpart of the dense, MoE, SSM and hybrid branches of
 ``repro.models.transformer``.
 The parameter tree keeps the reference's layout, with every block parameter
 stacked on a leading layer axis (``dense_stack.attn.wq`` is (L, d, H, hd),
@@ -23,6 +23,7 @@ from repro_torch import tree as tree_util
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
                                        embed_tokens, init_embedding, init_mlp,
@@ -36,8 +37,6 @@ def _unported(cfg: ArchConfig) -> str | None:
         return "encoder-decoder models (ROADMAP.md queue 1 item 5)"
     if cfg.family == "vlm" or cfg.vision is not None:
         return "the VLM patch prefix (ROADMAP.md queue 1 item 5)"
-    if cfg.family == "moe" or cfg.moe is not None:
-        return "MoE layers (ROADMAP.md queue 1 item 2)"
     if cfg.mla is not None or cfg.mtp_depth:
         return "MLA attention and MTP (ROADMAP.md queue 1 item 3)"
     return None
@@ -59,23 +58,28 @@ def init_block(gen, cfg: ArchConfig, kind: str, device) -> dict:
     if kind == "ssm":
         return {"ln1": init_norm(cfg, d, device),
                 "ssm": ssm_lib.init_mamba2(gen, cfg, device)}
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     return {
         "ln1": init_norm(cfg, d, device),
         "attn": attn.init_gqa(gen, cfg, d, device),
         "ln2": init_norm(cfg, d, device),
-        "ffn": init_mlp(gen, cfg, d, cfg.d_ff, device),
+        "ffn": (moe_lib.init_moe(gen, cfg, d, device) if kind == "moe"
+                else init_mlp(gen, cfg, d, cfg.d_ff, device)),
     }
 
 
-def _ffn(p, h, cfg, kind):
+def _ffn(p, h, cfg, kind, pctx):
+    if kind == "moe":
+        return moe_lib.apply_moe(p["ffn"], h, cfg, pctx)
     return apply_mlp(p["ffn"], h, cfg)
 
 
-def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions):
+def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
+                  pctx=None):
     """Full-sequence causal block. Returns (x, cache); for ``kind="ssm"``
-    the cache is the Mamba-2 state ``{"conv", "ssm"}``."""
+    the cache is the Mamba-2 state ``{"conv", "ssm"}``. ``pctx`` reaches
+    the MoE layer (expert parallelism over its mesh's ``data`` axis)."""
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
         y, state = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
@@ -83,7 +87,7 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions):
     y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
-    return x + _ffn(p, h2, cfg, kind), cache
+    return x + _ffn(p, h2, cfg, kind, pctx), cache
 
 
 def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos):
@@ -94,7 +98,7 @@ def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos):
     y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
-    return x + _ffn(p, h2, cfg, kind), cache
+    return x + _ffn(p, h2, cfg, kind, None), cache
 
 
 # ------------------------------------------------------------ stacked layers
@@ -118,7 +122,7 @@ def _stack_trees(trees: list):
     return tree_util.unflatten(trees[0], [torch.stack(c) for c in cols])
 
 
-def stack_forward(stack, x, cfg, kind, *, positions):
+def stack_forward(stack, x, cfg, kind, *, positions, pctx=None):
     """Run the stacked blocks layer by layer, each recomputed in backward;
     returns (x, caches), each cache leaf stacked on a leading layer axis:
     k/v (L, B, S, K, hd) for attention; for ``kind="ssm"`` the states
@@ -130,7 +134,7 @@ def stack_forward(stack, x, cfg, kind, *, positions):
 
         def body(carry, layer_p=layer_p):
             return block_forward(layer_p, carry, cfg, kind,
-                                 positions=positions)
+                                 positions=positions, pctx=pctx)
 
         if torch.is_grad_enabled():
             x, cache = checkpoint(body, x, use_reentrant=False)
@@ -161,8 +165,11 @@ def stack_decode(stack, x, cfg, kind, *, caches, pos):
 # ------------------------------------------------------------------ LM model
 @dataclasses.dataclass(frozen=True)
 class LM:
-    """Decoder-only dense LM: ``init``, ``loss_fn``, ``prefill``,
-    ``init_cache`` and ``decode_step``."""
+    """Decoder-only LM, dense or MoE: ``init``, ``loss_fn``, ``prefill``,
+    ``init_cache`` and ``decode_step``. An MoE config's first
+    ``n_dense_layers`` blocks form ``dense_stack`` and the rest
+    ``moe_stack`` (an empty stack is None, as in the reference); caches
+    are keyed ``"dense"`` and ``"moe"`` likewise."""
     cfg: ArchConfig
 
     def __post_init__(self):
@@ -175,16 +182,25 @@ class LM:
             raise ValueError(f"{self.cfg.name} is a Mamba-2 config: build it "
                              "with SSMLM (or build_model)")
 
+    @property
+    def stacks(self) -> tuple[tuple[str, str, int], ...]:
+        """(cache key, block kind, layers) of the dense and MoE stacks."""
+        cfg = self.cfg
+        if cfg.moe is None:
+            return (("dense", "dense", cfg.n_layers), ("moe", "moe", 0))
+        return (("dense", "dense", cfg.n_dense_layers),
+                ("moe", "moe", cfg.n_layers - cfg.n_dense_layers))
+
     def init(self, gen: torch.Generator, device=None) -> dict:
         """Random parameters drawn from ``gen`` (a CPU generator), on
         ``device`` (default cuda; ``"meta"`` gives shapes only)."""
         cfg = self.cfg
         device = resolve_device(device)
-        return {
-            "embed": init_embedding(gen, cfg, device),
-            "dense_stack": init_stack(gen, cfg, "dense", cfg.n_layers, device),
-            "final_norm": init_norm(cfg, cfg.d_model, device),
-        }
+        p = {"embed": init_embedding(gen, cfg, device)}
+        for key, kind, n in self.stacks:
+            p[f"{key}_stack"] = init_stack(gen, cfg, kind, n, device)
+        p["final_norm"] = init_norm(cfg, cfg.d_model, device)
+        return p
 
     # -------- shared trunk
     def _inputs(self, params: dict, batch: dict):
@@ -196,29 +212,35 @@ class LM:
             x = x + params["embed"]["positions"][:S]
         return x, positions
 
-    def _trunk(self, params: dict, x, positions):
+    def _trunk(self, params: dict, x, positions, pctx=None):
         cfg = self.cfg
-        x, caches = stack_forward(params["dense_stack"], x, cfg, "dense",
-                                  positions=positions)
-        return apply_norm(params["final_norm"], x, cfg), {"dense": caches}
+        caches = {}
+        for key, kind, _ in self.stacks:
+            if params[f"{key}_stack"] is not None:
+                x, caches[key] = stack_forward(
+                    params[f"{key}_stack"], x, cfg, kind,
+                    positions=positions, pctx=pctx)
+        return apply_norm(params["final_norm"], x, cfg), caches
 
     # -------- train
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
         """Mean next-token cross entropy of ``batch`` (``tokens``,
-        ``labels`` (B, S) int). ``pctx`` is accepted for the reference's
-        signature; the port's data parallelism syncs gradients outside the
-        model (:mod:`repro_torch.parallel.grad_sync`)."""
+        ``labels`` (B, S) int). ``pctx`` (a :class:`ParallelCtx`) reaches
+        the MoE layers, which run expert parallelism over its mesh's
+        ``data`` axis; the port's data parallelism syncs gradients outside
+        the model (:mod:`repro_torch.parallel.grad_sync`)."""
         x, positions = self._inputs(params, batch)
-        h, _ = self._trunk(params, x, positions)
+        h, _ = self._trunk(params, x, positions, pctx)
         labels = batch["labels"]
         return lm_loss(params["embed"], h[:, :-1], labels[:, 1:], self.cfg)
 
     # -------- serving
     def prefill(self, params: dict, batch: dict, pctx=None):
         """Logits of the last position (B, 1, V) float32 and the per-layer
-        KV caches ``{"dense": {"k", "v"}}`` each (L, B, S, K, hd)."""
+        KV caches ``{"dense": {"k", "v"}, "moe": {"k", "v"}}`` each (L, B,
+        S, K, hd), a key for each non-empty stack."""
         x, positions = self._inputs(params, batch)
-        h, caches = self._trunk(params, x, positions)
+        h, caches = self._trunk(params, x, positions, pctx)
         return logits(params["embed"], h[:, -1:, :], self.cfg), caches
 
     def decode_step(self, params: dict, caches: dict, batch: dict):
@@ -232,21 +254,28 @@ class LM:
         if cfg.pos_embedding == "learned":
             pos_b = attn._pos_vec(pos, x.shape[0], x.device)
             x = x + params["embed"]["positions"][pos_b][:, None, :]
-        x, _ = stack_decode(params["dense_stack"], x, cfg, "dense",
-                            caches=caches["dense"], pos=pos)
+        for key, kind, _ in self.stacks:
+            if params[f"{key}_stack"] is not None:
+                x, _ = stack_decode(params[f"{key}_stack"], x, cfg, kind,
+                                    caches=caches[key], pos=pos)
         h = apply_norm(params["final_norm"], x, cfg)
         return logits(params["embed"], h, cfg), caches
 
     def init_cache(self, batch_size: int, seq_len: int, device=None) -> dict:
-        """Zero KV caches shaped for a ``seq_len`` window:
-        ``{"dense": {"k", "v"}}`` each (L, B, S, K, hd)."""
+        """Zero KV caches shaped for a ``seq_len`` window: ``{"dense": {"k",
+        "v"}, "moe": {"k", "v"}}`` each (L, B, S, K, hd), a key for each
+        non-empty stack."""
         cfg = self.cfg
         device = resolve_device(device)
-        shape = (cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
         dt = dtype_of(cfg)
-        return {"dense": {"k": torch.zeros(shape, dtype=dt, device=device),
-                          "v": torch.zeros(shape, dtype=dt, device=device)}}
+        out = {}
+        for key, _, n in self.stacks:
+            if n:
+                shape = (n, batch_size, seq_len, cfg.n_kv_heads,
+                         cfg.resolved_head_dim)
+                out[key] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                            "v": torch.zeros(shape, dtype=dt, device=device)}
+        return out
 
 
 # ------------------------------------------------------------------ SSM model

@@ -1,4 +1,5 @@
-"""The port's dense ``decode_step`` against the JAX reference.
+"""The port's ``decode_step`` (dense and MoE ``LM``) against the JAX
+reference.
 
 Parameters come from the JAX package's ``init(PRNGKey(0))``, flattened by
 tree path, widened to float32 numpy and loaded with ``repro_torch.bridge``.
@@ -27,7 +28,7 @@ from repro_torch.configs import get
 from repro_torch.models import LM, build_model
 
 ARCHS = ["exanest-lm-100m", "deepseek-7b", "starcoder2-7b", "command-r-35b",
-         "mistral-large-123b"]
+         "mistral-large-123b", "granite-moe-1b-a400m"]
 # f32: same math, summation order differs; bf16: both round where the
 # reference's source rounds (see _run_both), and 2e-2 (the reference's bf16
 # kernel tolerance) covers the ulp flips that summation order still causes
@@ -79,11 +80,13 @@ def _assert_close(j_out, t_out, jc, tc, tol):
     for t, (a, b) in enumerate(zip(j_out, t_out)):
         np.testing.assert_allclose(b, a, rtol=tol, atol=tol,
                                    err_msg=f"logits of step {t}")
-    for name in ("k", "v"):
-        np.testing.assert_allclose(
-            tc["dense"][name].float().numpy(),
-            np.asarray(jc["dense"][name], np.float32), rtol=tol, atol=tol,
-            err_msg=f"cache {name}")
+    assert sorted(tc) == sorted(jc)
+    for stack in jc:
+        for name in ("k", "v"):
+            np.testing.assert_allclose(
+                tc[stack][name].float().numpy(),
+                np.asarray(jc[stack][name], np.float32), rtol=tol, atol=tol,
+                err_msg=f"{stack} cache {name}")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -156,8 +159,33 @@ def test_bridge_names_and_rejects_bad_leaves():
                            device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "granite-moe-1b-a400m",
-                                  "internvl2-1b", "whisper-small"])
-def test_unported_families_raise_naming_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+@pytest.mark.parametrize("arch,item", [
+    pytest.param(a, i, id=a) for a, i in [("deepseek-v3-671b", 3),
+                                         ("internvl2-1b", 5),
+                                         ("whisper-small", 5)]])
+def test_unported_families_raise_naming_roadmap_item(arch, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md queue 1 item {item}\\)"):
         build_model(reduced(get(arch)))
+
+
+def test_granite_moe_builds_and_runs():
+    """The MoE family is ported: granite builds with the reference's tree
+    (every layer in ``moe_stack``, ``dense_stack`` None), and its loss,
+    prefill and decode run."""
+    model = build_model(reduced(get("granite-moe-1b-a400m"), dtype="float32"))
+    assert isinstance(model, LM)
+    p = model.init(torch.Generator().manual_seed(0), device="cpu")
+    assert p["dense_stack"] is None
+    assert p["moe_stack"]["ffn"]["w_gate"].shape == (2, 4, 64, 32)
+    assert p["moe_stack"]["ffn"]["router"].dtype == torch.float32
+    toks = torch.randint(0, 256, (2, 12), generator=torch.Generator()
+                         .manual_seed(1))
+    loss = model.loss_fn(p, {"tokens": toks, "labels": toks})
+    lg, caches = model.prefill(p, {"tokens": toks})
+    assert sorted(caches) == ["moe"] and torch.isfinite(loss)
+    cache = model.init_cache(2, 16, device="cpu")
+    lg2, _ = model.decode_step(p, cache, {"token": toks[:, 0],
+                                          "pos": torch.tensor(0)})
+    assert lg.shape == lg2.shape == (2, 1, 256)
+    assert torch.isfinite(lg).all() and torch.isfinite(lg2).all()

@@ -174,11 +174,23 @@ DENSE_ARCHS = ["deepseek-7b", "starcoder2-7b", "command-r-35b",
                "mistral-large-123b"]
 
 
-@pytest.mark.parametrize("arch,dtype", [
-    pytest.param(arch, dtype, id=dtype if arch == ARCH else f"{arch}-{dtype}")
-    for arch in [ARCH] + DENSE_ARCHS for dtype in ("float32", "bfloat16")])
-def test_loss_fn_and_grads_match_reference(arch, dtype):
-    jm, tm, jp, tp = _models(dtype, arch)
+#: MoE configs, reduced: granite as it is (every layer MoE, softmax
+#: router), and with one leading dense layer, so that both stacks run
+MOE_ARCHS = [("granite-moe-1b-a400m", {}),
+             ("granite-moe-1b-a400m", {"n_dense_layers": 1})]
+
+
+def _arch_id(arch, over):
+    return arch + "".join(f"-{k}{v}" for k, v in over.items())
+
+
+@pytest.mark.parametrize("arch,over,dtype", [
+    pytest.param(arch, over, dtype,
+                 id=dtype if arch == ARCH else f"{_arch_id(arch, over)}-{dtype}")
+    for arch, over in [(a, {}) for a in [ARCH] + DENSE_ARCHS] + MOE_ARCHS
+    for dtype in ("float32", "bfloat16")])
+def test_loss_fn_and_grads_match_reference(arch, over, dtype):
+    jm, tm, jp, tp = _models(dtype, arch, **over)
     jb, tb = _batch(tm.cfg.vocab_size)
     j_loss, j_grads = _compile(jax.value_and_grad(jm.loss_fn), jp, jb)(jp, jb)
     t_loss, t_grads = _value_and_grad(tm, tp, tb, None)
