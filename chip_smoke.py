@@ -210,10 +210,10 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             layer) per decode_step; the kernel against its plain version at
             FD_TOL on layer 0's own bf16 cache (the row at 512, and at 317).
 21. moe_serve  ServeEngine(slots=8, window=2048) on the trained weights, 16
-            requests of 64-1024 prompt tokens (numpy seed 0) and 32 new
-            tokens each: 16/16 done, tokens in the vocabulary, 24
-            flash_decode launches per decode_step; ms per decode_step and
-            tokens/s.
+            requests of 64-512 prompt tokens (MOE_SERVE_PROMPTS, numpy
+            seed 0) and 32 new tokens each: 16/16 done, tokens in the
+            vocabulary, 24 flash_decode launches per decode_step; ms per
+            decode_step and tokens/s.
 22. moe_ep  expert parallelism over data on this one card: four processes
             (spawn) on a 2x2 mesh (pod, data) over gloo, granite at full
             width and 2 layers, a global batch of 8 x 512. all_to_all moves
@@ -227,6 +227,41 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             Trainer.make_step steps with EP and the default "auto" sync:
             losses finite, parameters bitwise equal across ranks after each
             step, combine launched as the plan says.
+23. ds_train  full-width deepseek-v3-671b (MLA: 128 heads, q_lora 1536,
+            kv_lora 512, nope 128, rope 64, v 128; d_ff 18432; experts of
+            2048, top 8, one shared, sigmoid router; vocab 129280; bf16)
+            cut to 2 layers (1 dense, 1 MoE) with its MTP head and 16
+            experts (ds_configs), random weights drawn on the card from
+            torch.Generator("cuda") seed 0, after every earlier model is
+            freed: the train step's peak reckoned on the meta tree
+            (ds_train_peak_gb, under DS_PEAK_LIMIT_GB), then
+            Trainer(donate=True).make_step, 2 x 2048, 20 AdamW steps at lr
+            2.2e-4 (DS_TRAIN), gated on held-out batches as moe_train;
+            the main and MTP losses per step, both finite; no
+            flash_decode launch; ms per step, tokens/s, peak memory, the
+            dropped share of routed slots of the trunk's MoE layer and
+            the MTP block's at the first and last step.
+24. ds_train_profile  1 more step under torch.profiler: device busy
+            against wall, the top kernels, device time split by
+            ds_profile_split into MLA's flash attention, the MoE layers,
+            the MTP block's other ops and everything else.
+25. ds_mla  the serving model (2 layers, all 256 experts, no MTP head:
+            13.94 B parameters, drawn on the card; the draw's time beside
+            the host's rate is in ds_serve's line), layer 0's MLA alone in
+            float32: the expanded prefill of 1024 tokens against the
+            absorbed mla_decode of token 1024 over the cache of the first
+            1023, within DS_MLA_TOL of the largest output; W_UV planted
+            from wkv_b's nope columns must read as a failure.
+26. ds_decode  batch 1: prefill of 511 tokens, one decode_step of token
+            512, against the last logits of the 512-token prefill, in bf16
+            and the float32 twin (the same weights widened in place after
+            the bf16 runs, and narrowed back), at capacity factors 1.25
+            and 6.0 (DS_DECODE_NO_DROP_CF), gated as moe_decode; no
+            flash_decode launch (MLA's decode is float32 einsums).
+27. ds_serve  ServeEngine(slots=8, window=1024), 16 requests of 64-512
+            prompt tokens (numpy seed 0), 32 new tokens each: 16/16 done,
+            tokens in the vocabulary, no flash_decode launch; ms per
+            decode_step, tokens/s and a decode_step profile (idle share).
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -244,6 +279,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
 import shutil
 import socket
@@ -388,6 +424,11 @@ MOE_DECODE_LEN = 512
 #: an expert at most one slot, and ceil(T * 8 / 32 * 2^2) = T slots hold
 #: all T tokens
 MOE_DECODE_NO_DROP_CF = 2.0
+#: moe_serve's prompt lengths, numpy seed 0: 64-512 tokens. At 64-1024 the
+#: phase's 2,373 host-bound decode_steps took 239.4-289.9 s, and the whole
+#: script 828.9 s without the deepseek phases and 981.8 s with them (PERF.md
+#: section 2)
+MOE_SERVE_PROMPTS = (64, 512)
 #: expert parallelism on four ranks of this one card: full width at
 #: reduced depth, a global batch of 8 x 512
 MOE_EP = dict(world=4, mesh=(2, 2), n_layers=2, global_batch=8, seq=512,
@@ -398,6 +439,42 @@ MOE_EP = dict(world=4, mesh=(2, 2), n_layers=2, global_batch=8, seq=512,
 #: ranks' blocks swapped; one (token, choice) slot dropped) must each read
 #: as unequal; their max|got - want| / max|want| is reported
 MOE_EP_FAULTS = ("blocks_swapped", "one_slot_dropped")
+#: deepseek-v3-671b at its own widths (d_model 7168, 128 heads, MLA q_lora
+#: 1536 / kv_lora 512 / nope 128 / rope 64 / v 128, d_ff 18432, experts of
+#: 2048 top 8 with one shared expert of 2048, sigmoid router, vocab 129280,
+#: bf16), cut in depth to 2 layers: 1 dense (the config's 3 would leave no
+#: MoE layer) and 1 MoE. Serving keeps all 256 experts and drops the MTP
+#: head, which no serving step reads (arXiv:2412.19437 section 2.2): 13.94 B
+#: parameters, 27.9 GB in bf16
+DS_SERVE_CUT = dict(n_layers=2, n_dense_layers=1, mtp_depth=0)
+#: training keeps the MTP head (depth 1) and cuts the experts to 16 (top 8,
+#: shared expert and sigmoid router kept): 4.26 B parameters, float32 AdamW
+#: moments. The functional update holds the old and the new state at once
+#: (a reckoned ~112 GB, ds_train_peak_gb), so the step is donated
+#: (Trainer(donate=True): the same arithmetic written in place), which
+#: keeps the reckoned peak under DS_PEAK_LIMIT_GB. Gated as MOE_TRAIN, on
+#: 2 x 2048, at DeepSeek-V3's own peak lr, 2.2e-4 (arXiv:2412.19437
+#: section 4.2): at MOE_TRAIN's 6e-4 the d_model-7168 model diverged, the
+#: MTP loss 12.5 -> 52.0 by step 7, held-out +1.66 nats (PERF.md section 6)
+DS_TRAIN_EXPERTS = 16
+DS_TRAIN = dict(batch=2, seq=2048, steps=20, lr=2.2e-4, warmup=4,
+                eval_steps=(10_000, 10_008), min_drop=0.07)
+DS_PEAK_LIMIT_GB = 75.0
+#: ds_mla: layer 0's MLA alone in float32, the expanded prefill of
+#: DS_MLA_LEN tokens against the absorbed decode of its last token over
+#: the cache of the others: max|decode - prefill's last row| / max|prefill's
+#: last row| within DS_MLA_TOL (the two orders of the same float32 products)
+DS_MLA_LEN = 1024
+DS_MLA_TOL = 1e-4
+#: ds_decode as moe_decode: batch 1, 511 + 1 tokens, at the config's
+#: capacity factor and at one where no expert can fill: a token sends an
+#: expert at most one slot, and ceil(T * 8 / 256 * cf^2) >= T needs cf^2 >=
+#: 32: at 6.0 an expert holds 1.125 T slots
+DS_DECODE_LEN = 512
+DS_DECODE_NO_DROP_CF = 6.0
+#: ds_serve: the serve cell's 16 requests and 32 new tokens, prompts of
+#: 64-512 tokens (numpy seed 0) in a 1024-token window
+DS_SERVE = dict(slots=8, window=1024, requests=16, prompt=(64, 512), new=32)
 LINES: list[dict] = []
 
 
@@ -2302,6 +2379,76 @@ def logged_prefill(model, params, tokens):
     return lg, caches, [(routed, int(kept)) for routed, kept in log]
 
 
+def moe_decode_vs_prefill(model, params, toks, n_moe: int):
+    """Batch 1: the last logits of a prefill of ``toks`` (1, S) and of one
+    ``decode_step`` of token S after a prefill of S - 1 (its caches copied
+    into an S window). Returns (full logits, decode logits, the decode's
+    caches, flash_decode launches of the decode_step, the last token's
+    kept slots per MoE layer, whether either prefill dropped a slot). The
+    last token's kept slots are kept(S) - kept(S-1): its own where tokens
+    0..S-2 route alike in both prefills (float32; bf16 products round
+    otherwise at the two shapes, and a route can flip at a near-tie)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels.flash_decode import kernel as fd
+    S = toks.shape[1]
+    full, _, log_full = logged_prefill(model, params, toks)
+    _, caches, log_short = logged_prefill(model, params, toks[:, :S - 1])
+    if len(log_full) != n_moe or len(log_short) != n_moe:
+        raise AssertionError(f"{len(log_full)} / {len(log_short)} MoE layer "
+                             f"calls in a prefill; expected {n_moe}")
+    cache = model.init_cache(1, S, device=toks.device)
+    for dst, src in zip(tree_util.leaves(cache), tree_util.leaves(caches)):
+        dst[:, :, :S - 1] = src
+    del caches
+    before = fd.launches
+    with torch.no_grad():
+        lg, _ = model.decode_step(params, cache, {
+            "token": toks[:, S - 1], "pos": torch.tensor(S - 1)})
+    torch.cuda.synchronize()
+    last_kept = [a - b for (_, a), (_, b) in zip(log_full, log_short)]
+    any_drop = any(kept != routed for routed, kept in log_full + log_short)
+    return full, lg, cache, fd.launches - before, last_kept, any_drop
+
+
+def serve_profile(model, params, eng, pos0, acts, n_prof: int = 8) -> dict:
+    """Where a ``decode_step``'s time goes: the engine's call on its cache
+    at the mid-run positions ``pos0``, logits back to the host, ``n_prof``
+    calls traced: device busy against wall, kernels and host ops."""
+    batch = {"token": torch.zeros(eng.slots, dtype=torch.int32,
+                                  device="cuda"),
+             "pos": torch.from_numpy(pos0).cuda()}
+
+    def one_step():
+        with torch.no_grad():
+            lg, _ = model.decode_step(params, eng.cache, batch)
+        lg[:, 0].float().cpu()
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            one_step()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernels = device_kernels(prof, n_prof)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n_prof,
+                    e.count / n_prof) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda x: -x[1])
+    del prof
+    busy = sum(ms for _, ms, _ in kernels)
+    step_ms = prof_wall / n_prof * 1e3
+    return {"steps": n_prof, "ms_per_step_wall_profiled": step_ms,
+            "device_busy_ms_per_step": busy,
+            "idle_share": 1 - busy / step_ms,
+            "kernels_per_step": sum(n_ for *_, n_ in kernels),
+            "top": [[name[:80], ms, n_] for name, ms, n_ in kernels[:8]],
+            "host_top_self_ms": [[name[:60], ms, n_]
+                                 for name, ms, n_ in host[:10]]}
+
+
 def _gather_cpu(t: torch.Tensor) -> list[torch.Tensor]:
     """Every rank's ``t`` (one shape on all ranks), in rank order, back on
     ``t``'s device: all_gather of its bytes through host memory."""
@@ -2599,46 +2746,19 @@ def moe_phases(smi: str, acts) -> dict:
     toks = data.batch_at(300)["tokens"][:1, :S]
     params32 = tree_util.tree_map(lambda t: t.float(), params)
 
-    def decode_vs_prefill(c, p):
-        """(full logits, decode logits, caches, flash_decode launches of
-        the decode_step, the last token's kept slots per layer, whether
-        either prefill dropped a slot) of the model of config ``c`` on
-        parameters ``p``. The last token's kept slots are kept(S) -
-        kept(S-1): its own where tokens 0..S-2 route alike in both
-        prefills (float32; bf16 products round otherwise at the two
-        shapes, and a route can flip at a near-tie)."""
-        m = build_model(c)
-        full, _, log_full = logged_prefill(m, p, toks)
-        _, caches, log_short = logged_prefill(m, p, toks[:, :S - 1])
-        if len(log_full) != L or len(log_short) != L:
-            raise AssertionError(f"{len(log_full)} / {len(log_short)} MoE "
-                                 f"layer calls in a prefill; expected {L}")
-        cache = m.init_cache(1, S, device="cuda")
-        for name in ("k", "v"):
-            cache["moe"][name][:, :, :S - 1] = caches["moe"][name]
-        del caches
-        before = fd.launches
-        with torch.no_grad():
-            lg, _ = m.decode_step(p, cache, {"token": toks[:, S - 1],
-                                             "pos": torch.tensor(S - 1)})
-        torch.cuda.synchronize()
-        last_kept = [a - b for (_, a), (_, b) in zip(log_full, log_short)]
-        any_drop = any(kept != routed for routed, kept in log_full + log_short)
-        return full, lg, cache, fd.launches - before, last_kept, any_drop
-
     cf_runs, layer0 = {}, None
     for cf in (cfg.moe.capacity_factor, MOE_DECODE_NO_DROP_CF):
         c16 = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cf))
         c32 = dataclasses.replace(c16, dtype="float32")
-        full16, lg16, cache16, fd16, kept16, any16 = decode_vs_prefill(
-            c16, params)
+        full16, lg16, cache16, fd16, kept16, any16 = moe_decode_vs_prefill(
+            build_model(c16), params, toks, L)
         if layer0 is None:
             layer0 = (cache16["moe"]["k"][0].clone(),
                       cache16["moe"]["v"][0].clone())
         del cache16
-        full32, lg32, cache32, fd32, kept32, any32 = decode_vs_prefill(
-            c32, params32)
+        full32, lg32, cache32, fd32, kept32, any32 = moe_decode_vs_prefill(
+            build_model(c32), params32, toks, L)
         del cache32
         agree, readings = decode_readings(full16, lg16, full32, lg32)
         dropped = any(n != k for n in kept16 + kept32)
@@ -2704,8 +2824,9 @@ def moe_phases(smi: str, acts) -> dict:
     del warm
     eng = ServeEngine(model, params, slots=8, window=2048, device="cuda")
     rng = np.random.default_rng(0)
+    lo, hi = MOE_SERVE_PROMPTS
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
-               for n in rng.integers(64, 1025, 16)]
+               for n in rng.integers(lo, hi + 1, 16)]
     torch.cuda.synchronize()
     fd.launches = 0
     t0 = time.perf_counter()
@@ -2736,34 +2857,7 @@ def moe_phases(smi: str, acts) -> dict:
                    "max_err": (got.float() - want.float()).abs().max().item(),
                    "reading": fd_reading(got, want), "tol": FD_TOL_TEXT}
     del k0, v0, got, want
-    # where a decode_step's time goes: the engine's call on its cache at
-    # the mid-run positions, logits back to the host, traced
-    batch = {"token": torch.zeros(8, dtype=torch.int32, device="cuda"),
-             "pos": torch.from_numpy(pos0).cuda()}
-
-    def one_step():
-        with torch.no_grad():
-            lg, _ = model.decode_step(params, eng.cache, batch)
-        lg[:, 0].float().cpu()
-
-    for _ in range(3):
-        one_step()
-    torch.cuda.synchronize()
-    n_prof = 8
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            one_step()
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    kernels = device_kernels(prof, n_prof)
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n_prof,
-                    e.count / n_prof) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CPU),
-                  key=lambda x: -x[1])
-    del prof
-    busy = sum(ms for _, ms, _ in kernels)
-    step_ms = prof_wall / n_prof * 1e3
+    step_profile = serve_profile(model, params, eng, pos0, acts)
     emit({"phase": "moe_serve", "arch": cfg.name, "dtype": cfg.dtype,
           "weights": "after moe_train's 20 steps and the profile's",
           "slots": 8, "window": 2048,
@@ -2775,15 +2869,7 @@ def moe_phases(smi: str, acts) -> dict:
           "new_tok_per_s": n_tok / wall,
           "engine_cache_check": serve_check,
           "first_tokens": outs[0][:8] if outs[0] else None,
-          "decode_step_profile": {
-              "steps": n_prof, "ms_per_step_wall_profiled": step_ms,
-              "device_busy_ms_per_step": busy,
-              "idle_share": 1 - busy / step_ms,
-              "kernels_per_step": sum(n_ for *_, n_ in kernels),
-              "top": [[name[:80], ms, n_] for name, ms, n_ in kernels[:8]],
-              "host_top_self_ms": [[name[:60], ms, n_]
-                                   for name, ms, n_ in host[:10]]},
-          "card": smi})
+          "decode_step_profile": step_profile, "card": smi})
     if done != 16:
         raise AssertionError(f"moe_serve: served {done}/16 requests")
     if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
@@ -2859,6 +2945,490 @@ def moe_phases(smi: str, acts) -> dict:
             "combine": {"path": "moe_ep (rank 0)", "launches": ep_launches,
                         "launches_per_synced_step":
                             ep_launches / MOE_EP["steps"]}}
+
+
+def ds_configs():
+    """(serving config, training config) of deepseek-v3-671b at full width
+    (DS_SERVE_CUT, DS_TRAIN_EXPERTS)."""
+    from repro_torch.configs import get
+    cfg = dataclasses.replace(get("deepseek-v3-671b"), **DS_SERVE_CUT)
+    train = dataclasses.replace(cfg, mtp_depth=1, moe=dataclasses.replace(
+        cfg.moe, n_experts=DS_TRAIN_EXPERTS))
+    return cfg, train
+
+
+def ds_train_peak_gb(model, opt_cfg, donate: bool) -> float:
+    """The train step's reckoned peak in GB from the meta tree: parameters,
+    gradients (the parameters' dtype) and optimizer state live through the
+    step; the functional update also holds new parameters and state beside
+    the old until it returns, with ~5 float32 copies of the leaf it works
+    on, a donated one ~3 (``adamw_update``'s temporaries). Activations are
+    left out (each trunk layer is recomputed in backward)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.train.optimizer import adamw_init
+    params = model.init(torch.Generator(), device="meta")
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in tree_util.leaves(tree))
+
+    p_b, o_b = nbytes(params), nbytes(adamw_init(params, opt_cfg))
+    leaf_b = 4 * max(t.numel() for t in tree_util.leaves(params))
+    if donate:
+        return (2 * p_b + o_b + 3 * leaf_b) / 1e9
+    return (3 * p_b + 2 * o_b + 5 * leaf_b) / 1e9
+
+
+#: the profiler ranges ds_train_profile puts around flash attention, the MoE
+#: layer and the MTP loss, innermost first
+DS_LABELS = ("flash_attention", "moe.apply_moe", "mtp")
+
+
+def ds_profile_split(prof, steps: int,
+                     attr: str = "self_device_time_total") -> dict:
+    """Device ms per step of the deepseek train step in four parts: MLA's
+    ``flash_attention``, the MoE layers (the trunk's and the MTP block's),
+    the MTP block's other ops (its projection, norms, MLA projections and
+    its loss) and everything else. An op's own kernel time goes to the
+    innermost of the ranges DS_LABELS it runs in (forward, and the
+    recompute of checkpointed layers); a backward node goes where the
+    forward op that made it ran, matched by (thread, sequence number), as
+    the profiler records both. ``attr`` is the time read (device time; a
+    CPU rehearsal reads CPU time)."""
+    cpu = torch.autograd.DeviceType.CPU
+    parts = {"flash_attention": 0.0, "moe": 0.0, "mtp_other": 0.0,
+             "other": 0.0}
+    names = {"flash_attention": "flash_attention", "moe.apply_moe": "moe",
+             "mtp": "mtp_other"}
+
+    def in_range(e):
+        node = e
+        while node is not None:
+            if node.name in DS_LABELS:
+                return names[node.name]
+            node = node.cpu_parent
+        return None
+
+    events = [e for e in prof.events() if e.device_type == cpu]
+    made_in = {}
+    for e in events:
+        if e.sequence_nr >= 0 and "Backward" not in e.name \
+                and not e.name.startswith("autograd::"):
+            part = in_range(e)
+            if part is not None:
+                made_in.setdefault((e.thread, e.sequence_nr), part)
+
+    def part_of(e):
+        node = e
+        while node is not None:
+            if node.name in DS_LABELS:
+                return names[node.name]
+            if "Backward" in node.name and node.sequence_nr >= 0:
+                fwd = getattr(node, "fwd_thread", None)
+                key = (node.thread if fwd is None else fwd, node.sequence_nr)
+                return made_in.get(key, "other")
+            node = node.cpu_parent
+        return "other"
+
+    for e in events:
+        if e.name in DS_LABELS:
+            continue                 # a range's own time is its span
+        us = getattr(e, attr)
+        if us > 0:
+            parts[part_of(e)] += us / 1e3 / steps
+    return parts
+
+
+def _widen_(tree: dict, slots: list | None = None) -> list:
+    """Every bf16 leaf of ``tree`` widened to float32 in place, one leaf at
+    a time (the old copy of one leaf at most lives beside the new tree);
+    returns the (dict, key) slots it changed, for :func:`_narrow_`."""
+    slots = [] if slots is None else slots
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _widen_(val, slots)
+        elif val is not None and val.dtype == torch.bfloat16:
+            tree[key] = val.float()
+            slots.append((tree, key))
+            del val
+    return slots
+
+
+def _narrow_(slots: list) -> None:
+    """Undo :func:`_widen_`: the widened leaves back to bf16, exactly."""
+    for tree, key in slots:
+        tree[key] = tree[key].bfloat16()
+
+
+def ds_phases(smi: str, acts) -> dict:
+    """Phases 23-27 on full-width deepseek-v3-671b, cut in depth
+    (ds_configs); returns the deepseek path's launches of every kernel for
+    the kernels line (all 0: MLA's decode is float32 einsums, as in the
+    reference)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.allreduce_combine import kernel as ck
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.matmul_tile import kernel as mk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import LM, build_model, moe
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    from repro_torch.models.transformer import _unported
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    dev = "cuda"
+    kmods = {"flash_decode": fd, "allreduce_combine": ck, "ssd_scan": sk,
+             "matmul_tile": mk}
+    for m in kmods.values():
+        m.launches = 0
+    cfg, tcfg = ds_configs()
+    why = _unported(cfg)
+    model, tmodel = build_model(cfg), build_model(tcfg)
+    if why is not None or not isinstance(model, LM):
+        raise AssertionError(f"deepseek: _unported says {why!r}, "
+                             f"build_model gave {type(model).__name__}")
+
+    def gen():
+        return torch.Generator(dev).manual_seed(0)
+
+    # ------------------------------------------------------- 23. ds_train
+    dt_ = DS_TRAIN
+    opt_cfg = AdamWConfig(lr=dt_["lr"], warmup_steps=dt_["warmup"],
+                          decay_steps=dt_["steps"])
+    reckoned = {"donated": ds_train_peak_gb(tmodel, opt_cfg, True),
+                "functional": ds_train_peak_gb(tmodel, opt_cfg, False)}
+    if reckoned["donated"] >= DS_PEAK_LIMIT_GB:
+        raise AssertionError(f"ds_train: reckoned peak {reckoned} GB")
+    tr = Trainer(tmodel, opt_cfg, device=dev, donate=True)
+    t0 = time.perf_counter()
+    state = tr.init_state(gen())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_util.leaves(state["params"]))
+    data = SyntheticTokens(tcfg, batch=dt_["batch"], seq=dt_["seq"], seed=0,
+                           device=dev)
+    held = [data.batch_at(i) for i in range(*dt_["eval_steps"])]
+
+    def held_loss(params):
+        with torch.no_grad():
+            return [float(tmodel.loss_fn(params, b)) for b in held]
+
+    mtp_seen = []
+    mtp_orig = LM._mtp_loss
+
+    def mtp_recorded(self, *args, **kwargs):
+        out = mtp_orig(self, *args, **kwargs)
+        mtp_seen.append(out.detach())
+        return out
+
+    held_before = held_loss(state["params"])
+    step_fn = tr.make_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd.launches = 0
+    losses, main_l, mtp_l, walls, dropped = [], [], [], [], {}
+    n_moe = tcfg.n_layers - tcfg.n_dense_layers + tcfg.mtp_depth
+    LM._mtp_loss = mtp_recorded
+    try:
+        t_run = time.perf_counter()
+        for i in range(dt_["steps"]):
+            record = i in (0, dt_["steps"] - 1)
+            if record:
+                moe.drop_log = []
+            mtp_seen.clear()
+            t = time.perf_counter()
+            new, metrics = step_fn(state, data.batch_at(i))
+            state.update(new)
+            del new
+            losses.append(float(metrics["loss"]))     # waits for the step
+            walls.append(time.perf_counter() - t)
+            mtp_l.append(float(mtp_seen[0]))
+            main_l.append(losses[-1] - 0.3 * mtp_l[-1])
+            if record:
+                log, moe.drop_log = moe.drop_log, None
+                # forward: the trunk's MoE layer, then the MTP block's; the
+                # trunk's recompute follows in backward
+                if len(log) != n_moe + 1:
+                    raise AssertionError(f"{len(log)} MoE layer calls in a "
+                                         "step; expected the trunk's "
+                                         "forward and recompute and the "
+                                         "MTP block's forward")
+                dropped[i] = [1 - int(kept) / routed
+                              for routed, kept in log[:n_moe]]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+    finally:
+        LM._mtp_loss = mtp_orig
+        moe.drop_log = None
+    train_fd = fd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held_after = held_loss(state["params"])
+    drop = float(np.mean(held_before) - np.mean(held_after))
+    steady_ms = float(np.mean(walls[1:])) * 1e3
+    tokens = dt_["batch"] * dt_["seq"]
+    first, last = min(dropped), max(dropped)
+    emit({"phase": "ds_train", "arch": tcfg.name, "dtype": tcfg.dtype,
+          "reduced": "n_layers=2 (1 dense, 1 MoE), mtp_depth=1, "
+                     f"n_experts={DS_TRAIN_EXPERTS} (full width)",
+          "params": n_params, "entry": "Trainer.make_step", **dt_,
+          "optimizer": "AdamW, float32 moments, donated step",
+          "reckoned_peak_GB": reckoned, "experts": tcfg.moe.n_experts,
+          "top_k": tcfg.moe.top_k, "losses": losses, "main_losses": main_l,
+          "mtp_losses": mtp_l,
+          "held_out_losses_before": held_before,
+          "held_out_losses_after": held_after, "held_out_mean_drop": drop,
+          "threshold": f"held_out_mean_drop >= {dt_['min_drop']}",
+          "wall_s": run_s, "init_state_s": init_s,
+          "step_wall_ms": [w * 1e3 for w in walls],
+          "ms_per_step_wall": steady_ms,
+          "tok_per_s": tokens / (steady_ms / 1e3), "peak_mem_GB": peak_gb,
+          "dropped_share_per_moe_layer": {
+              "layers": ["moe_stack.0", "mtp.block"],
+              f"step{first}": dropped[first], f"step{last}": dropped[last]},
+          "flash_decode_launches": train_fd, "card": smi})
+    if train_fd:
+        raise AssertionError(f"flash_decode launched {train_fd} times in "
+                             "ds_train")
+    if not all(np.isfinite(main_l + mtp_l + held_before + held_after)):
+        raise AssertionError(f"a ds_train loss is not finite: main {main_l},"
+                             f" mtp {mtp_l}, held-out {held_before} -> "
+                             f"{held_after}")
+    if not drop >= dt_["min_drop"]:
+        raise AssertionError(f"the ds_train loss did not fall: held-out "
+                             f"batches {held_before} -> {held_after}")
+
+    # ----------------------------------------------- 24. ds_train_profile
+    n_prof = 1
+    saved = moe.apply_moe, attn_mod.flash_attention
+    moe.apply_moe = _labelled(saved[0], "moe.apply_moe")
+    attn_mod.flash_attention = _labelled(saved[1], "flash_attention")
+    LM._mtp_loss = _labelled(mtp_orig, "mtp")
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(n_prof):
+                state.update(step_fn(state, data.batch_at(100 + i))[0])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        moe.apply_moe, attn_mod.flash_attention = saved
+        LM._mtp_loss = mtp_orig
+    split = ds_profile_split(prof, n_prof)
+    kernels = device_kernels(prof, n_prof, skip=DS_LABELS)
+    del prof
+    busy = sum(ms for _, ms, _ in kernels)
+    wall_ms = prof_wall / n_prof * 1e3
+    emit({"phase": "ds_train_profile", "steps": n_prof,
+          "ms_per_step_wall_profiled": wall_ms,
+          "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall_ms,
+          "idle_share_vs_unprofiled_wall": 1 - busy / steady_ms,
+          "kernels_per_step": sum(n_ for *_, n_ in kernels),
+          "split_ms_per_step": split,
+          "split_share_of_busy": {p: ms / busy for p, ms in split.items()},
+          "split_attributed_ms": sum(split.values()),
+          "split_rules": "ds_profile_split's docstring",
+          "top": [[name[:80], ms, n_] for name, ms, n_ in kernels[:15]],
+          "card": smi})
+    del state, step_fn, tr, held, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- 25. ds_mla
+    t0 = time.perf_counter()
+    params = model.init(gen(), device=dev)
+    torch.cuda.synchronize()
+    serve_init_s = time.perf_counter() - t0
+    n_serve = sum(t.numel() for t in tree_util.leaves(params))
+    # the weight draw: the card's generator against the host's one stream
+    # (the phases before draw on the host: torch.Generator() seed 0)
+    probe = 1 << 27
+    t0 = time.perf_counter()
+    torch.randn(probe, generator=torch.Generator().manual_seed(0))
+    host_rate = probe / (time.perf_counter() - t0)
+    draw = {"serving_params": n_serve, "on_card_s": serve_init_s,
+            "host_draws_per_s": host_rate,
+            "host_s_for_serving_params": n_serve / host_rate,
+            "host_RAM_GB": os.sysconf("SC_PAGE_SIZE")
+            * os.sysconf("SC_PHYS_PAGES") / 1e9,
+            "largest_leaf_float32_GB": 4 * max(
+                t.numel() for t in tree_util.leaves(params)) / 1e9}
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    m = cfg.mla
+    L0 = tree_util.tree_map(lambda t: t[0], params["dense_stack"])
+    p0 = tree_util.tree_map(lambda t: t.float(), L0["attn"])
+    S = DS_MLA_LEN
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, S))).to(dev)
+    with torch.no_grad():
+        h = apply_norm(L0["ln1"], embed_tokens(params["embed"], toks, cfg),
+                       cfg).float()
+        y_full, _ = attn_mod.mla_attention(
+            p0, h, c32, positions=torch.arange(S, device=dev)[None])
+        _, pre = attn_mod.mla_attention(
+            p0, h[:, :S - 1], c32,
+            positions=torch.arange(S - 1, device=dev)[None])
+        want = y_full[:, S - 1:]
+
+        def absorbed(p):
+            cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 1))
+                     for n, c in pre.items()}
+            y, _ = attn_mod.mla_decode(p, h[:, S - 1:], c32, cache,
+                                       torch.tensor(S - 1, device=dev))
+            return y
+
+        def reading(y):
+            return ((y - want).abs().max() / want.abs().max()).item()
+
+        got = absorbed(p0)
+        nope = m.qk_nope_head_dim
+        bad = dict(p0, wkv_b=torch.cat([p0["wkv_b"][..., :nope],
+                                        p0["wkv_b"][..., :nope]], -1))
+        planted = reading(absorbed(bad))
+    mla_reading = reading(got)
+    mla_ok = mla_reading <= DS_MLA_TOL and planted > DS_MLA_TOL
+    emit({"phase": "ds_mla", "arch": cfg.name, "layer": "dense_stack.0",
+          "dtype": "float32", "heads": cfg.n_heads,
+          "dims": dataclasses.asdict(m), "prefill_len": S,
+          "decode_pos": S - 1,
+          "max_abs_err": (got - want).abs().max().item(),
+          "max_abs_out": want.abs().max().item(),
+          "reading": mla_reading, "tol": DS_MLA_TOL,
+          "planted_fault": {"what": "W_UV taken from wkv_b's nope columns",
+                            "reading": planted,
+                            "read_as_failure": planted > DS_MLA_TOL},
+          "ok": mla_ok, "card": smi})
+    if not mla_ok:
+        raise AssertionError(f"ds_mla: absorbed decode reads {mla_reading} "
+                             f"(tol {DS_MLA_TOL}); planted fault reads "
+                             f"{planted}")
+    del p0, h, y_full, pre, want, got, bad, L0
+
+    # ------------------------------------------------------ 26. ds_decode
+    # batch 1: prefill(S-1) then decode equals prefill(S) when both
+    # prefills give the experts the same capacity and prefill(S) kept every
+    # slot of the last token (moe.drop_log says whether it did)
+    S = DS_DECODE_LEN
+    k = cfg.moe.top_k
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, S))).to(dev)
+
+    cfs = (cfg.moe.capacity_factor, DS_DECODE_NO_DROP_CF)
+    runs = {}
+    t0 = time.perf_counter()
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            widened = _widen_(params)             # the bf16 values, widened
+        for cf in cfs:
+            c = dataclasses.replace(cfg, dtype=dtype, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf))
+            full, lg, _, n_fd, kept, any_drop = moe_decode_vs_prefill(
+                build_model(c), params, toks, 1)
+            runs[dtype, cf] = full, lg, n_fd, kept, any_drop
+        if dtype == "float32":
+            twin_peak = torch.cuda.max_memory_allocated() / 1e9
+            _narrow_(widened)                     # back, exactly
+            del widened
+            gc.collect()
+            torch.cuda.empty_cache()
+    decode_s = time.perf_counter() - t0
+    cf_runs = {}
+    for cf in cfs:
+        full16, lg16, fd16, kept16, any16 = runs["bfloat16", cf]
+        full32, lg32, fd32, kept32, any32 = runs["float32", cf]
+        agree, readings = decode_readings(full16, lg16, full32, lg32)
+        dropped_last = any(n != k for n in kept16 + kept32)
+        cf_runs[str(cf)] = {
+            "decode_agrees": agree, **readings,
+            "last_token_dropped": dropped_last,
+            "last_token_slots_kept": {"bfloat16": kept16, "float32": kept32},
+            "a_prefill_dropped_a_slot": {"bfloat16": any16,
+                                         "float32": any32},
+            "flash_decode_launches_per_decode_step": {"bfloat16": fd16,
+                                                      "float32": fd32},
+            "ok": bool((agree or dropped_last) and fd16 == 0 and fd32 == 0
+                       and torch.isfinite(lg16).all().item()
+                       and torch.isfinite(lg32).all().item())}
+    del runs
+    no_drop = cf_runs[str(DS_DECODE_NO_DROP_CF)]
+    ok = (all(r["ok"] for r in cf_runs.values())
+          and not any(no_drop["a_prefill_dropped_a_slot"].values())
+          and not no_drop["last_token_dropped"] and no_drop["decode_agrees"])
+    emit({"phase": "ds_decode", "arch": cfg.name, "batch": 1,
+          "prefill_len": S - 1, "full_len": S, "wall_s": decode_s,
+          "float32_twin_peak_GB": twin_peak,
+          "by_capacity_factor": cf_runs,
+          "gate": "decode_agrees (as ssm_decode) unless the full prefill "
+                  "dropped a slot of the last token; at capacity factor "
+                  f"{DS_DECODE_NO_DROP_CF} no expert can fill: neither "
+                  "prefill may drop a slot, and decode must agree; "
+                  "flash_decode launches 0 (MLA's absorbed decode is "
+                  "float32 einsums)",
+          "ok": ok, "card": smi})
+    if not ok:
+        raise AssertionError(f"ds_decode: {cf_runs}")
+
+    # ------------------------------------------------------- 27. ds_serve
+    sv = DS_SERVE
+    warm = ServeEngine(model, params, slots=2, window=64, device=dev)
+    warm.submit([1, 2, 3], max_new_tokens=2)
+    warm.run_until_idle()
+    del warm
+    eng = ServeEngine(model, params, slots=sv["slots"], window=sv["window"],
+                      device=dev)
+    rng = np.random.default_rng(0)
+    lo, hi = sv["prompt"]
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, sv["requests"])]
+    torch.cuda.synchronize()
+    fd.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=sv["new"]) for p in prompts]
+    eng.run_until_idle(max_steps=16)          # mid-decode of the first wave
+    pos0 = eng.pos.copy()
+    eng.run_until_idle(max_steps=100000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_fd, calls = fd.launches, eng.decode_calls
+    outs = [eng.result(r) for r in rids]
+    done = sum(o is not None and len(o) == sv["new"] for o in outs)
+    n_tok = sum(len(o or []) for o in outs)
+    prompt_tok = sum(len(p) for p in prompts)
+    step_profile = serve_profile(model, params, eng, pos0, acts)
+    emit({"phase": "ds_serve", "arch": cfg.name, "dtype": cfg.dtype,
+          "reduced": "n_layers=2 (1 dense, 1 MoE of 256 experts), "
+                     "mtp_depth=0 (full width)",
+          "params": n_serve, "weight_draw": draw,
+          "slots": sv["slots"], "window": sv["window"],
+          "requests": sv["requests"], "done": done,
+          "prompt_tokens": prompt_tok, "new_tokens": n_tok,
+          "decode_step_calls": calls, "flash_decode_launches": serve_fd,
+          "wall_s": wall, "ms_per_decode_step": wall / calls * 1e3,
+          "tok_per_s": (prompt_tok + n_tok) / wall,
+          "new_tok_per_s": n_tok / wall,
+          "first_tokens": outs[0][:8] if outs[0] else None,
+          "decode_step_profile": step_profile, "card": smi})
+    if done != sv["requests"]:
+        raise AssertionError(f"ds_serve: served {done}/{sv['requests']} "
+                             "requests")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError("ds_serve: a token lies outside the vocabulary")
+    if serve_fd or calls == 0:
+        raise AssertionError(f"ds_serve: flash_decode launched {serve_fd} "
+                             f"times over {calls} decode_step calls; "
+                             "expected 0")
+    del eng, params, model, tmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {name: m.launches for name, m in kmods.items()}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on the deepseek path: "
+                             f"{launches}")
+    return {name: {"path": "ds_train, ds_decode, ds_serve", "launches": n}
+            for name, n in launches.items()}
 
 
 def free_port() -> int:
@@ -3309,6 +3879,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     moe_readings = moe_phases(smi, acts)
 
+    # ------------------------------------------- 23-27. deepseek phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ds = ds_phases(smi, acts)
+    ssd_entry["deepseek"] = ds["ssd_scan"]
+    mm_entry["deepseek"] = ds["matmul_tile"]
+
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -3321,6 +3899,7 @@ def main() -> int:
         "max_reading": max(r["reading"] for r in results), "path": "serve",
         "launches_per_decode_step": launches / calls,
         "hybrid": hybrid["flash_decode"], "moe": moe_readings["flash_decode"],
+        "deepseek": ds["flash_decode"],
         "long": {x: timings["long"][x] for x in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
             "library_ms", "share_of_bound")}}, {
@@ -3331,7 +3910,8 @@ def main() -> int:
         "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
         "library_ms": c_lib_ms, "tol": 1e-2, "path": "dp (rank 0)",
         "launches_per_synced_step": dp_launches / max(dp_steps, 1),
-        "moe_ep": moe_readings["combine"]},
+        "moe_ep": moe_readings["combine"],
+        "deepseek": ds["allreduce_combine"]},
         ssd_entry, mm_entry]})
     (OUT / "chip_smoke.json").write_text(json.dumps(LINES, indent=1))
     print(smi, flush=True)

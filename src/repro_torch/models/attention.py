@@ -1,4 +1,5 @@
-"""Attention: GQA (+RoPE) with head padding, for decode and for training.
+"""Attention: GQA (+RoPE) with head padding and DeepSeek MLA, for decode
+and for training.
 
 Counterpart of ``repro.models.attention``. ``gqa_decode`` takes one new
 token against a KV cache and routes its attention through
@@ -9,6 +10,13 @@ reference's double-chunked online softmax with its custom backward, in
 plain PyTorch: the reference computes it outside any Pallas kernel. Layouts
 are the reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo``
 (H, hd, d), caches (B, S, K, hd).
+
+MLA (latent-compressed attention, arXiv:2412.19437) runs its expanded form
+through the same ``flash_attention`` for train and prefill, and its
+*absorbed* form for decode, so the cache stays (kv_lora + rope) wide per
+token: ``{"c_kv": (B, S, kv_lora), "k_rope": (B, S, rope)}``. The absorbed
+decode is the reference's float32 einsums in torch ops, no kernel: the
+reference has none there either.
 """
 
 from __future__ import annotations
@@ -19,7 +27,8 @@ import torch.nn.functional as F
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.flash_decode.ops import decode_attn
 from repro_torch.kernels.flash_decode.ref import NEG_INF, decode_attention_ref
-from repro_torch.models.layers import apply_rope, dense_init, dtype_of
+from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
+                                       dtype_of, init_norm)
 
 
 def _pos_vec(pos, B: int, device) -> torch.Tensor:
@@ -89,11 +98,12 @@ def gqa_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions) -> tuple:
 def _write_kv(cache: torch.Tensor, pos_b: torch.Tensor,
               new: torch.Tensor) -> None:
     """cache[b, pos_b[b]] = new[b] in place, dropping rows with pos_b >= S
-    (the reference's ``.at[rows, pos].set`` drops out-of-range writes)."""
+    (the reference's ``.at[rows, pos].set`` drops out-of-range writes);
+    cache (B, S, *F), new (B, *F)."""
     S = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     idx = pos_b.clamp(max=S - 1)
-    keep = (pos_b < S)[:, None, None]
+    keep = (pos_b < S).view((-1,) + (1,) * (new.dim() - 1))
     cache[rows, idx] = torch.where(keep, new.to(cache.dtype), cache[rows, idx])
 
 
@@ -292,3 +302,101 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
     out = _head_mask(cfg, out)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return out, {"k": k, "v": v}
+
+
+# ------------------------------------------------------------------------ MLA
+def init_mla(gen, cfg: ArchConfig, d: int, device) -> dict:
+    """The reference's tree: no head padding (``cfg.n_heads`` as it stands),
+    norms with float32 scales."""
+    m = cfg.mla
+    dt = dtype_of(cfg)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    H = cfg.n_heads
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), dt, device),
+        "q_norm": init_norm(cfg, m.q_lora_rank, device),
+        "wq_b": dense_init(gen, (m.q_lora_rank, H, qk), dt, device),
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dt,
+                            device),
+        "kv_norm": init_norm(cfg, m.kv_lora_rank, device),
+        "wkv_b": dense_init(gen, (m.kv_lora_rank, H,
+                                  m.qk_nope_head_dim + m.v_head_dim), dt,
+                            device),
+        "wo": dense_init(gen, (H, m.v_head_dim, d), dt, device,
+                         scale=(H * m.v_head_dim) ** -0.5),
+    }
+
+
+def _mla_q(p, x, cfg, positions):
+    m = cfg.mla
+    q_lat = apply_norm(p["q_norm"], x @ p["wq_a"], cfg)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, x, cfg, positions):
+    """(c_kv (B, S, kv_lora) normed, k_rope (B, S, 1, rope) rotated)."""
+    m = cfg.mla
+    kv = x @ p["wkv_a"]
+    c_kv = apply_norm(p["kv_norm"], kv[..., :m.kv_lora_rank], cfg)
+    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                  positions) -> tuple[torch.Tensor, dict]:
+    """Expanded-form MLA for train and prefill: keys and values expanded
+    from the latent per head (k_rope shared by every head), causal
+    ``flash_attention`` at dk = nope + rope, dv = v. The cache it returns
+    stays compressed: ``{"c_kv": (B, S, kv_lora), "k_rope": (B, S,
+    rope)}``."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    kv = torch.einsum("bsr,rhk->bshk", c_kv, p["wkv_b"])
+    k_nope = kv[..., :m.qk_nope_head_dim]
+    v = kv[..., m.qk_nope_head_dim:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(k_nope.shape[:3]
+                                         + (m.qk_rope_head_dim,))], dim=-1)
+    out = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
+
+
+def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
+               pos) -> tuple[torch.Tensor, dict]:
+    """Absorbed-form decode of x (B, 1, d): the new latent and rope key are
+    written IN PLACE at ``pos`` (scalar or per-row; a write at ``pos >= S``
+    is dropped, as in ``gqa_decode``); W_UK is folded into the query and
+    W_UV applied after the attention, all in float32 in the reference's
+    order, and ``wo`` in the model dtype."""
+    m = cfg.mla
+    B = x.shape[0]
+    pos_b = _pos_vec(pos, B, x.device)
+    positions = pos_b[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)          # (B,1,H,*)
+    c_new, kr_new = _mla_latent(p, x, cfg, positions)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    _write_kv(c_kv, pos_b, c_new[:, 0])
+    _write_kv(k_rope, pos_b, kr_new[:, 0, 0, :])
+    w_uk = p["wkv_b"][..., :m.qk_nope_head_dim]            # (r,H,nope)
+    w_uv = p["wkv_b"][..., m.qk_nope_head_dim:]            # (r,H,v)
+    c32 = c_kv.float()
+    q_c = torch.einsum("bshk,rhk->bhr", q_nope.float(), w_uk.float())
+    s = torch.einsum("bhr,bkr->bhk", q_c, c32)
+    s = s + torch.einsum("bshk,bmk->bhm", q_rope.float(), k_rope.float())
+    s = s * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    mask = (torch.arange(c_kv.shape[1], device=x.device)[None, :]
+            <= pos_b[:, None])
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhk,bkr->bhr", pr, c32)
+    o = torch.einsum("bhr,rhv->bhv", o_c, w_uv.float())
+    out = torch.einsum("bhv,hvd->bd", o.to(x.dtype), p["wo"])[:, None, :]
+    return out, cache

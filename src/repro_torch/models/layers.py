@@ -6,8 +6,10 @@ for training ``softmax_xent`` and the chunked ``lm_loss``, and Mamba-2's
 Parameters are nested dicts of tensors; init functions mirror apply
 functions. Weights are drawn from an explicit CPU ``torch.Generator`` in
 float32 and then moved, so one seed gives the same weights on every device.
-``device="meta"`` gives the shapes and dtypes without drawing anything (the
-counterpart of ``jax.eval_shape``).
+A generator on the card draws there instead (a full-width expert stack is
+billions of draws, too slow for the host's one stream). ``device="meta"``
+gives the shapes and dtypes without drawing anything (the counterpart of
+``jax.eval_shape``).
 """
 
 from __future__ import annotations
@@ -30,8 +32,19 @@ def dense_init(gen: torch.Generator, shape, dtype, device: torch.device,
         return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
-    return w.to(device=device, dtype=dtype)
+    if gen.device.type == "cpu":
+        w = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+        return w.to(device=device, dtype=dtype)
+    # drawn on the generator's device in float32 slices along dim 0, each
+    # rounded into the leaf, so no float32 copy of a whole leaf exists
+    w = torch.empty(shape, dtype=dtype, device=device)
+    rows = w.view(shape[0], -1) if len(shape) >= 2 else w.view(1, -1)
+    step = max(1, (1 << 28) // max(rows.shape[1], 1))
+    for i in range(0, rows.shape[0], step):
+        part = torch.randn(rows[i:i + step].shape, generator=gen,
+                           dtype=torch.float32, device=gen.device)
+        rows[i:i + step] = (part * scale).to(device=device, dtype=dtype)
+    return w
 
 
 # ---------------------------------------------------------------------- norms

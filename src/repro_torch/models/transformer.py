@@ -1,7 +1,8 @@
-"""Decoder-only dense and MoE LM, the Mamba-2 LM and the Zamba2-style
-hybrid: training (``loss_fn``), prefill and decode.
+"""Decoder-only dense and MoE LM (with DeepSeek's MLA attention and MTP
+head), the Mamba-2 LM and the Zamba2-style hybrid: training (``loss_fn``),
+prefill and decode.
 
-Counterpart of the dense, MoE, SSM and hybrid branches of
+Counterpart of the dense, MoE, MLA/MTP, SSM and hybrid branches of
 ``repro.models.transformer``.
 The parameter tree keeps the reference's layout, with every block parameter
 stacked on a leading layer axis (``dense_stack.attn.wq`` is (L, d, H, hd),
@@ -25,9 +26,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
-                                       embed_tokens, init_embedding, init_mlp,
-                                       init_norm, lm_loss, logits)
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+                                       dtype_of, embed_tokens, init_embedding,
+                                       init_mlp, init_norm, lm_loss, logits)
 
 
 def _unported(cfg: ArchConfig) -> str | None:
@@ -37,8 +38,6 @@ def _unported(cfg: ArchConfig) -> str | None:
         return "encoder-decoder models (ROADMAP.md queue 1 item 5)"
     if cfg.family == "vlm" or cfg.vision is not None:
         return "the VLM patch prefix (ROADMAP.md queue 1 item 5)"
-    if cfg.mla is not None or cfg.mtp_depth:
-        return "MLA attention and MTP (ROADMAP.md queue 1 item 3)"
     return None
 
 
@@ -62,7 +61,8 @@ def init_block(gen, cfg: ArchConfig, kind: str, device) -> dict:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     return {
         "ln1": init_norm(cfg, d, device),
-        "attn": attn.init_gqa(gen, cfg, d, device),
+        "attn": (attn.init_mla(gen, cfg, d, device) if cfg.mla is not None
+                 else attn.init_gqa(gen, cfg, d, device)),
         "ln2": init_norm(cfg, d, device),
         "ffn": (moe_lib.init_moe(gen, cfg, d, device) if kind == "moe"
                 else init_mlp(gen, cfg, d, cfg.d_ff, device)),
@@ -78,13 +78,17 @@ def _ffn(p, h, cfg, kind, pctx):
 def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
                   pctx=None):
     """Full-sequence causal block. Returns (x, cache); for ``kind="ssm"``
-    the cache is the Mamba-2 state ``{"conv", "ssm"}``. ``pctx`` reaches
-    the MoE layer (expert parallelism over its mesh's ``data`` axis)."""
+    the cache is the Mamba-2 state ``{"conv", "ssm"}``, for an MLA config
+    ``{"c_kv", "k_rope"}``. ``pctx`` reaches the MoE layer (expert
+    parallelism over its mesh's ``data`` axis)."""
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
         y, state = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
         return x + y, state
-    y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions)
+    if cfg.mla is not None:
+        y, cache = attn.mla_attention(p["attn"], h, cfg, positions=positions)
+    else:
+        y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, pctx), cache
@@ -95,7 +99,10 @@ def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos):
     if kind == "ssm":
         y, state = ssm_lib.mamba2_decode(p["ssm"], h, cfg, cache)
         return x + y, state
-    y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos)
+    if cfg.mla is not None:
+        y, cache = attn.mla_decode(p["attn"], h, cfg, cache, pos)
+    else:
+        y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, None), cache
@@ -125,7 +132,8 @@ def _stack_trees(trees: list):
 def stack_forward(stack, x, cfg, kind, *, positions, pctx=None):
     """Run the stacked blocks layer by layer, each recomputed in backward;
     returns (x, caches), each cache leaf stacked on a leading layer axis:
-    k/v (L, B, S, K, hd) for attention; for ``kind="ssm"`` the states
+    k/v (L, B, S, K, hd) for attention, c_kv (L, B, S, kv_lora) and k_rope
+    (L, B, S, rope) for MLA; for ``kind="ssm"`` the states
     ``{"conv": (sx, sB, sC) each (L, B, W-1, C), "ssm": (L, B, h, p, n)}``."""
     n = stack["ln1"]["scale"].shape[0]
     caches = []
@@ -148,8 +156,8 @@ def stack_decode(stack, x, cfg, kind, *, caches, pos):
     """Run the stacked blocks layer by layer over ``caches`` (leaves with a
     leading layer axis), updated IN PLACE (the reference's scan returns new
     caches instead): attention layers write their new KV into
-    ``caches[...][i]``; SSM layers' new conv and SSM states are copied into
-    layer i's slice."""
+    ``caches[...][i]`` (MLA layers their latent and rope key); SSM layers'
+    new conv and SSM states are copied into layer i's slice."""
     n = stack["ln1"]["scale"].shape[0]
     for i in range(n):
         layer_p = tree_util.tree_map(lambda t: t[i], stack)
@@ -169,7 +177,10 @@ class LM:
     ``init_cache`` and ``decode_step``. An MoE config's first
     ``n_dense_layers`` blocks form ``dense_stack`` and the rest
     ``moe_stack`` (an empty stack is None, as in the reference); caches
-    are keyed ``"dense"`` and ``"moe"`` likewise."""
+    are keyed ``"dense"`` and ``"moe"`` likewise. With ``cfg.mla`` every
+    block attends by MLA and caches its latent; with ``cfg.mtp_depth`` the
+    tree holds DeepSeek-V3's MTP head (``mtp``), which only training uses,
+    as in the reference."""
     cfg: ArchConfig
 
     def __post_init__(self):
@@ -192,15 +203,28 @@ class LM:
                 ("moe", "moe", cfg.n_layers - cfg.n_dense_layers))
 
     def init(self, gen: torch.Generator, device=None) -> dict:
-        """Random parameters drawn from ``gen`` (a CPU generator), on
-        ``device`` (default cuda; ``"meta"`` gives shapes only)."""
+        """Random parameters drawn from ``gen`` (a CPU generator, or one on
+        the card, which draws there), on ``device`` (default cuda;
+        ``"meta"`` gives shapes only)."""
         cfg = self.cfg
         device = resolve_device(device)
         p = {"embed": init_embedding(gen, cfg, device)}
         for key, kind, n in self.stacks:
             p[f"{key}_stack"] = init_stack(gen, cfg, kind, n, device)
         p["final_norm"] = init_norm(cfg, cfg.d_model, device)
+        if cfg.mtp_depth:
+            d = cfg.d_model
+            p["mtp"] = {
+                "proj": dense_init(gen, (2 * d, d), dtype_of(cfg), device),
+                "block": init_block(gen, cfg, self._mtp_kind, device),
+                "ln_h": init_norm(cfg, d, device),
+                "ln_e": init_norm(cfg, d, device),
+            }
         return p
+
+    @property
+    def _mtp_kind(self) -> str:
+        return "moe" if self.cfg.moe is not None else "dense"
 
     # -------- shared trunk
     def _inputs(self, params: dict, batch: dict):
@@ -232,13 +256,35 @@ class LM:
         x, positions = self._inputs(params, batch)
         h, _ = self._trunk(params, x, positions, pctx)
         labels = batch["labels"]
-        return lm_loss(params["embed"], h[:, :-1], labels[:, 1:], self.cfg)
+        total = lm_loss(params["embed"], h[:, :-1], labels[:, 1:], self.cfg)
+        if self.cfg.mtp_depth:
+            total = total + 0.3 * self._mtp_loss(params, h, batch, pctx)
+        return total
+
+    def _mtp_loss(self, params: dict, h, batch: dict, pctx=None):
+        """DeepSeek-V3 MTP (depth 1): predict token t+2 from the normed
+        final hidden state h_t joined with the normed embedding of token
+        t+1, through one block and the shared head. The block is not
+        recomputed in backward, as in the reference."""
+        cfg = self.cfg
+        mtp = params["mtp"]
+        e_next = embed_tokens(params["embed"], batch["tokens"][:, 1:], cfg)
+        hh = apply_norm(mtp["ln_h"], h[:, :-1], cfg)
+        ee = apply_norm(mtp["ln_e"], e_next, cfg)
+        z = torch.cat([hh, ee], dim=-1) @ mtp["proj"]
+        B, S = z.shape[0], z.shape[1]
+        positions = torch.arange(S, device=z.device).expand(B, S)
+        z, _ = block_forward(mtp["block"], z, cfg, self._mtp_kind,
+                             positions=positions, pctx=pctx)
+        return lm_loss(params["embed"], z[:, :-1], batch["labels"][:, 2:],
+                       cfg)
 
     # -------- serving
     def prefill(self, params: dict, batch: dict, pctx=None):
         """Logits of the last position (B, 1, V) float32 and the per-layer
         KV caches ``{"dense": {"k", "v"}, "moe": {"k", "v"}}`` each (L, B,
-        S, K, hd), a key for each non-empty stack."""
+        S, K, hd), a key for each non-empty stack (MLA: ``{"c_kv",
+        "k_rope"}`` as :meth:`init_cache` shapes them)."""
         x, positions = self._inputs(params, batch)
         h, caches = self._trunk(params, x, positions, pctx)
         return logits(params["embed"], h[:, -1:, :], self.cfg), caches
@@ -264,17 +310,29 @@ class LM:
     def init_cache(self, batch_size: int, seq_len: int, device=None) -> dict:
         """Zero KV caches shaped for a ``seq_len`` window: ``{"dense": {"k",
         "v"}, "moe": {"k", "v"}}`` each (L, B, S, K, hd), a key for each
-        non-empty stack."""
+        non-empty stack; for MLA ``{"c_kv": (L, B, S, kv_lora), "k_rope":
+        (L, B, S, rope)}``, in the model dtype."""
         cfg = self.cfg
         device = resolve_device(device)
         dt = dtype_of(cfg)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=device)
+
         out = {}
         for key, _, n in self.stacks:
-            if n:
+            if not n:
+                continue
+            if cfg.mla is not None:
+                m = cfg.mla
+                out[key] = {"c_kv": zeros(n, batch_size, seq_len,
+                                          m.kv_lora_rank),
+                            "k_rope": zeros(n, batch_size, seq_len,
+                                            m.qk_rope_head_dim)}
+            else:
                 shape = (n, batch_size, seq_len, cfg.n_kv_heads,
                          cfg.resolved_head_dim)
-                out[key] = {"k": torch.zeros(shape, dtype=dt, device=device),
-                            "v": torch.zeros(shape, dtype=dt, device=device)}
+                out[key] = {"k": zeros(*shape), "v": zeros(*shape)}
         return out
 
 

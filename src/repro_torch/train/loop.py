@@ -36,12 +36,15 @@ def _value_and_grad(model, params, batch, pctx):
 def make_train_step(model, opt_cfg: AdamWConfig, pctx=None,
                     microbatches: int = 1,
                     accum_dtype: torch.dtype = torch.float32,
-                    sync_fn: Callable | None = None) -> Callable:
+                    sync_fn: Callable | None = None,
+                    donate: bool = False) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics). With ``microbatches > 1``, gradients accumulate in
     ``accum_dtype`` over sequential slices of the batch rows. ``sync_fn``
     (grads -> grads) runs after accumulation, before the optimizer: the
-    data-parallel gradient sync hook (see ``Trainer.make_step``)."""
+    data-parallel gradient sync hook (see ``Trainer.make_step``). With
+    ``donate`` the step writes the new parameters and moments into the
+    given ones (``adamw_update(donate=True)``) and returns them."""
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
@@ -67,7 +70,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, pctx=None,
             if sync_fn is not None:
                 grads = sync_fn(grads)
             new_params, new_opt, metrics = adamw_update(grads, opt_state,
-                                                        params, opt_cfg)
+                                                        params, opt_cfg,
+                                                        donate=donate)
         metrics["loss"] = loss
         return new_params, new_opt, metrics
 
@@ -87,7 +91,10 @@ class Trainer:
     ``"hierarchical"`` and ``"compressed"`` name one for every bucket.
     Lossy int8 compression is never chosen silently: opt in with
     ``allow_lossy=True`` (and consider ``CompressedSync`` for error
-    feedback)."""
+    feedback). With ``donate=True`` each step updates the state's tensors
+    in place (``make_train_step(donate=True)``): the state passed in is
+    consumed, and the step's peak loses the second copy of the parameters
+    and moments."""
     model: Any
     opt_cfg: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
     pctx: Any = None
@@ -95,6 +102,7 @@ class Trainer:
     sync_strategy: str = "auto"
     allow_lossy: bool = False
     device: Any = None
+    donate: bool = False
 
     def init_state(self, gen: torch.Generator) -> dict:
         params = self.model.init(gen, device=resolve_device(self.device))
@@ -121,7 +129,7 @@ class Trainer:
         if sync_fn is None and self.mesh is not None:
             sync_fn = self.make_sync()
         step = make_train_step(self.model, self.opt_cfg, self.pctx,
-                               sync_fn=sync_fn)
+                               sync_fn=sync_fn, donate=self.donate)
 
         def fn(state, batch):
             p, o, m = step(state["params"], state["opt"], batch)

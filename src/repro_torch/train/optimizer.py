@@ -6,7 +6,8 @@ each moment leaf float32 or, when quantized, ``{"q": int8 (param shape),
 "scale": float32 (per last-dim block)}`` (8-bit Adam, arXiv:2110.02861), so
 optimizer states and checkpoints cross frameworks. Parameters stay in their
 own dtype (bf16) with no float32 master copy, as in the reference. The
-update is functional: new tensors, the inputs untouched.
+update is functional: new tensors, the inputs untouched; or, donated, the
+same arithmetic written into the given tensors.
 """
 
 from __future__ import annotations
@@ -102,28 +103,43 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_util.leaves(tree)))
 
 
-def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
-    """Returns (new_params, new_opt_state, metrics)."""
+def _step_terms(grads, opt_state: dict, cfg: AdamWConfig):
+    """(step, gradient norm, clip scale, lr, bias corrections 1 and 2) of
+    the update that ``opt_state`` takes next."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-    lr = lr_at(step, cfg)
     sf = step.float()
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
                                      device=sf.device), sf)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                      device=sf.device), sf)
+    return step, gnorm, scale, lr_at(step, cfg), bc1, bc2
+
+
+def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig,
+                 donate: bool = False):
+    """Returns (new_params, new_opt_state, metrics). With ``donate`` the
+    parameters and moments are updated in place (the counterpart of
+    ``jax.jit``'s ``donate_argnums``) and the returned trees hold the same
+    tensors: the same arithmetic, so the same bits, but the old state is
+    not kept beside the new one, and a leaf's temporaries are about 3
+    float32 copies of it instead of 5."""
+    step, gnorm, scale, lr, bc1, bc2 = _step_terms(grads, opt_state, cfg)
 
     def upd(p, g, m_st, v_st):
         # m = b1*m + (1-b1)*g; v = b2*v + (1-b2)*g*g;
         # u = (m/bc1) / (sqrt(v/bc2) + eps) + wd*p; p - lr*u: the same ops in
         # the same order, written in place on the update's own temporaries so
         # that a leaf holds at most ~5 float32 copies of itself at once (a
-        # 2.8B-parameter model's largest leaf is 3.4 GB in float32)
+        # 2.8B-parameter model's largest leaf is 3.4 GB in float32); donated,
+        # float32 moments accumulate in their own storage
         g = g.float() * scale
-        m = cfg.b1 * _read(m_st, cfg)
+        m = _read(m_st, cfg)
+        m = m.mul_(cfg.b1) if donate and m is m_st else cfg.b1 * m
         m += (1 - cfg.b1) * g
-        v = cfg.b2 * _read(v_st, cfg)
+        v = _read(v_st, cfg)
+        v = v.mul_(cfg.b2) if donate and v is v_st else cfg.b2 * v
         t = (1 - cfg.b2) * g
         t *= g
         v += t
@@ -134,8 +150,16 @@ def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
         del den
         u += cfg.weight_decay * p.float()
         u.mul_(lr)
-        new_p = (p.float() - u).to(p.dtype)
-        return new_p, _write(m, m_st, cfg), _write(v, v_st, cfg)
+        if not donate:
+            new_p = (p.float() - u).to(p.dtype)
+            return new_p, _write(m, m_st, cfg), _write(v, v_st, cfg)
+        p.copy_(p.float() - u)
+        for new, st in ((m, m_st), (v, v_st)):
+            if _is_state(st):
+                q, s = _quant(new, cfg.qblock)
+                st["q"].copy_(q)
+                st["scale"].copy_(s)
+        return p, m_st, v_st
 
     flat_m = tree_util.leaves(opt_state["m"], is_leaf=_is_state)
     flat_v = tree_util.leaves(opt_state["v"], is_leaf=_is_state)

@@ -5,8 +5,9 @@ Same numpy inputs and the reference's ``init_moe(PRNGKey(0))`` parameters
 moved across by tree path: ``apply_moe`` and its gradients (a scalar loss on
 ``y``) for a softmax router without shared experts (reduced
 ``granite-moe-1b-a400m``) and a sigmoid router with one shared expert (the
-MoE block of reduced ``deepseek-v3-671b``, alone: its MLA attention is not
-ported), in float32 and bfloat16; ``_pack`` bit for bit on a router skewed so
+MoE block of reduced ``deepseek-v3-671b``, alone; the whole deepseek model,
+MLA and MTP included, is held in ``tests/test_torch_mla.py``), in float32
+and bfloat16; ``_pack`` bit for bit on a router skewed so
 that capacity binds, and the layer there; top-k ties broken to the lower
 expert id; at model level, the reference's tree at full width, prefill
 logits and caches, batch-1 decode after prefill, the serving engine's tokens,
