@@ -209,11 +209,12 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             flash_decode's (64, 64) instance launched 24 times (once per
             layer) per decode_step; the kernel against its plain version at
             FD_TOL on layer 0's own bf16 cache (the row at 512, and at 317).
-21. moe_serve  ServeEngine(slots=8, window=2048) on the trained weights, 16
-            requests of 64-512 prompt tokens (MOE_SERVE_PROMPTS, numpy
-            seed 0) and 32 new tokens each: 16/16 done, tokens in the
-            vocabulary, 24 flash_decode launches per decode_step; ms per
-            decode_step and tokens/s.
+21. moe_serve  ServeEngine(slots=8, window=2048) on the first 12 of the
+            trained layers (MOE_SERVE_LAYERS, full width), 16 requests of
+            64-512 prompt tokens (MOE_SERVE_PROMPTS, numpy seed 0) and 32
+            new tokens each: 16/16 done, tokens in the vocabulary, 12
+            flash_decode launches per decode_step; ms per decode_step and
+            tokens/s.
 22. moe_ep  expert parallelism over data on this one card: four processes
             (spawn) on a 2x2 mesh (pod, data) over gloo, granite at full
             width and 2 layers, a global batch of 8 x 512. all_to_all moves
@@ -262,6 +263,38 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             prompt tokens (numpy seed 0), 32 new tokens each: 16/16 done,
             tokens in the vocabulary, no flash_decode launch; ms per
             decode_step, tokens/s and a decode_step profile (idle share).
+28. shard  the port's sharding on this one card: eight processes (spawn)
+            on a (pod 2, data 2, model 2) mesh over gloo, all on cuda:0
+            (SHARD). (a) full-width exanest-lm-100m (bf16, random weights
+            from torch.Generator seed 0, drawn whole on every rank, each
+            keeping its param_specs blocks): 3 sharded Trainer steps of a
+            global batch 8 x 512 (2 rows a batch rank), TP over model (6 of
+            12 heads, 2 of 4 KV heads, 1024 of 2048 MLP columns), ZeRO-3
+            over data (each layer's data shards gathered at its entry), the
+            sync of sync_sharded_gradients. Gates: step 0's loss and every
+            updated leaf, gathered on rank 0, against one unsharded step on
+            the card from the same parameters and batch at the reference's
+            2e-2 (SHARD_STEP_TOL), the synced gradients at SHARD_GRAD_TOL;
+            each rank's parameter and moment bytes equal the reckoning from
+            param_specs/opt_state_specs, the leaves sharded over data and
+            model a quarter each; combine launched per step per rank as
+            shard_expected_combines reckons from the layout and the sync
+            plan; every block equal bit for bit on the ranks that hold it,
+            replicated leaves equal on all eight. (b) sharded prefill of 512
+            tokens at batch 8, then 16 decode_steps: 2 KV heads a rank, 12
+            flash_decode launches a decode_step a rank; the logits against
+            the unsharded model's prefill and decode within SHARD_BF16_TOL;
+            the kernel against its plain version on each rank's own layer-0
+            cache at FD_TOL. (d) the trained state saved from (data 2,
+            model 4) blocks (gathered, rank 0 writes) and restored onto
+            (data 4, model 2) by elastic_reshard: every leaf equal bit for
+            bit. (c) granite-moe-1b-a400m at full width cut to 2 layers,
+            layer 0's MoE layer on its normed input (global batch 8 x 512):
+            16 of 32 experts a rank (EP over data), 256 of 512 expert
+            columns (TP over model), one forward and backward; the routes
+            equal emulate_ep's (EP with a model axis of 1) on the gathered
+            tokens, the output, input gradient and parameter gradients
+            within SHARD_BF16_TOL.
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -429,6 +462,11 @@ MOE_DECODE_NO_DROP_CF = 2.0
 #: script 828.9 s without the deepseek phases and 981.8 s with them (PERF.md
 #: section 2)
 MOE_SERVE_PROMPTS = (64, 512)
+#: moe_serve's depth: the first 12 of the 24 trained layers, full width. At
+#: 24 layers the phase took 171.3-176.4 s (1,440 host-bound decode_steps,
+#: ~101 ms each) and the whole script 952.2 s once the shard phase came
+#: (PERF.md section 2)
+MOE_SERVE_LAYERS = 12
 #: expert parallelism on four ranks of this one card: full width at
 #: reduced depth, a global batch of 8 x 512
 MOE_EP = dict(world=4, mesh=(2, 2), n_layers=2, global_batch=8, seq=512,
@@ -477,6 +515,30 @@ DS_DECODE_NO_DROP_CF = 6.0
 DS_SERVE = dict(slots=8, window=1024, requests=16, prompt=(64, 512), new=32)
 LINES: list[dict] = []
 
+
+#: phase 28 (shard): eight gloo ranks on this one card as a (pod 2, data 2,
+#: model 2) mesh, the reference's test_distributed.py mesh. (a) full-width
+#: exanest-lm-100m, global batch 8 x 512, 3 sharded steps at lr 1e-3 from
+#: step 1 (warmup 1); (b) prefill of 512 tokens then 16 decode steps at
+#: batch 8; (c) granite's MoE layer 0 at full width, model cut to 2 layers,
+#: on layer 0's normed input of a global batch 8 x 512; (d) the state after
+#: (a) saved on (data 2, model 4), restored onto (data 4, model 2)
+SHARD = dict(world=8, mesh=(2, 2, 2), arch="exanest-lm-100m",
+             global_batch=8, seq=512, steps=3, lr=1e-3, prompt=512,
+             decode=16, moe_arch="granite-moe-1b-a400m", moe_layers=2,
+             reshard=((2, 4), (4, 2)))
+#: (a) the reference's own tolerance for a sharded step against the
+#: unsharded one (tests/test_distributed.py:121): the loss within 2e-2,
+#: every updated leaf within rtol = atol = 2e-2. (b) and (c) in bf16 at 3e-2
+#: (rtol and atol), the reference's bf16 model tolerance and
+#: decode_readings' margin
+SHARD_STEP_TOL = 2e-2
+SHARD_BF16_TOL = 3e-2
+#: (a)'s synced gradients against the unsharded step's, per leaf, relative
+#: to the leaf's largest value: 5e-2, about 13 bf16 ulps there. Both are
+#: bf16 (the sharded one rounded per rank before its sums over data and
+#: pod, the unsharded one once); a missing or doubled sum reads 0.5 or more
+SHARD_GRAD_TOL = 5e-2
 
 T_START = time.perf_counter()
 
@@ -2818,11 +2880,17 @@ def moe_phases(smi: str, acts) -> dict:
     del kk, vv, layer0
 
     # ----------------------------------------------------- 21. moe_serve
-    warm = ServeEngine(model, params, slots=2, window=64, device="cuda")
+    # the first MOE_SERVE_LAYERS trained layers at full width
+    Ls = MOE_SERVE_LAYERS
+    scfg = dataclasses.replace(cfg, n_layers=Ls)
+    smodel = build_model(scfg)
+    sparams = dict(params, moe_stack=tree_util.tree_map(
+        lambda t: t[:Ls], params["moe_stack"]))
+    warm = ServeEngine(smodel, sparams, slots=2, window=64, device="cuda")
     warm.submit([1, 2, 3], max_new_tokens=2)
     warm.run_until_idle()
     del warm
-    eng = ServeEngine(model, params, slots=8, window=2048, device="cuda")
+    eng = ServeEngine(smodel, sparams, slots=8, window=2048, device="cuda")
     rng = np.random.default_rng(0)
     lo, hi = MOE_SERVE_PROMPTS
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
@@ -2857,8 +2925,10 @@ def moe_phases(smi: str, acts) -> dict:
                    "max_err": (got.float() - want.float()).abs().max().item(),
                    "reading": fd_reading(got, want), "tol": FD_TOL_TEXT}
     del k0, v0, got, want
-    step_profile = serve_profile(model, params, eng, pos0, acts)
+    step_profile = serve_profile(smodel, sparams, eng, pos0, acts)
     emit({"phase": "moe_serve", "arch": cfg.name, "dtype": cfg.dtype,
+          "reduced": f"n_layers={Ls} (full width; the first {Ls} of the "
+                     f"{L} trained layers)",
           "weights": "after moe_train's 20 steps and the profile's",
           "slots": 8, "window": 2048,
           "requests": 16, "done": done, "prompt_tokens": prompt_tok,
@@ -2874,15 +2944,15 @@ def moe_phases(smi: str, acts) -> dict:
         raise AssertionError(f"moe_serve: served {done}/16 requests")
     if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
         raise AssertionError("moe_serve: a token lies outside the vocabulary")
-    if serve_fd != L * calls or calls == 0:
+    if serve_fd != Ls * calls or calls == 0:
         raise AssertionError(f"moe_serve: flash_decode launched {serve_fd} "
                              f"times over {calls} decode_step calls; "
-                             f"expected {L} per call")
+                             f"expected {Ls} per call")
     if not serve_check["reading"] <= 1:
         raise AssertionError(f"moe_serve: flash_decode on the engine's cache: "
                              f"reading {serve_check['reading']} > 1 "
                              f"({FD_TOL_TEXT})")
-    del eng, params, model
+    del eng, params, model, sparams, smodel
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3431,6 +3501,564 @@ def ds_phases(smi: str, acts) -> dict:
             for name, n in launches.items()}
 
 
+# ------------------------------------------------------------- 28. shard
+def _close_reading(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max |got - want| / (tol * max(1, max|want|) + tol |want|): at most 1
+    passes (rtol = tol, atol = tol of the leaf's scale)."""
+    g, w = got.float(), want.float()
+    scale = max(1.0, w.abs().max().item()) if w.numel() else 1.0
+    if not w.numel():
+        return 0.0
+    return ((g - w).abs() / (tol * scale + tol * w.abs())).max().item()
+
+
+def shard_expected_combines(cfg, pctx, plan: list, n_pod: int) -> dict:
+    """``combine`` launches one sharded train step of the dense LM makes on
+    each rank, from the model's layout alone: per layer a sum over model
+    after attention and after the MLP in forward, the attention's again in
+    the recompute (the MLP's sum is the block's last op and nothing
+    backward reads comes after it, so the non-reentrant checkpoint stops
+    its recompute before it), a sum over model in backward at the entry of
+    each (the copies' adjoint); one reduce-scatter over data in backward
+    for each leaf sharded over data (the layer's, once a layer, and the
+    embedding's); the sync's plan of the leaves replicated over data and
+    one sum over pod per bucket of the rest; the gradient norm and the
+    loss's mean over the batch ranks, one each."""
+    from repro_torch.models.attention import gqa_tp
+    from repro_torch.models.layers import mlp_tp
+    from repro_torch.parallel.grad_sync import combine_launches_per_sync
+    from repro_torch.parallel.sharding import (is_spec, layer_specs,
+                                               spec_axes, top_specs)
+    from repro_torch import tree as tree_util
+
+    def over_data(tree):
+        return sum("data" in {a for e in s for a in spec_axes(e)}
+                   for s in tree_util.leaves(tree, is_leaf=is_spec))
+
+    L = cfg.n_layers
+    attn, mlp = int(gqa_tp(cfg, pctx)), int(mlp_tp(cfg.d_ff, pctx))
+    parts = {"tp_forward": L * (attn + mlp), "tp_recompute": L * attn,
+             "tp_backward": L * (attn + mlp),
+             "zero_reduce_scatter": L * over_data(layer_specs(cfg, "dense",
+                                                              pctx))
+             + over_data(top_specs(cfg, pctx)),
+             "sync_replicated_plan": combine_launches_per_sync(pctx.mesh,
+                                                               plan),
+             "sync_pod_buckets": n_pod, "grad_norm": 1, "loss_mean": 1}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def shard_worker(rank: int, port: int, out_dir: str,
+                 dev_name: str = "cuda") -> None:
+    """One rank of the shard phase (run by torch.multiprocessing, spawn)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint.store import save_checkpoint
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticTokens, shard_batch
+    from repro_torch.kernels.allreduce_combine import kernel as ck
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode.ops import decode_attn
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    from repro_torch.parallel.ctx import make_parallel_ctx
+    from repro_torch.parallel.grad_sync import plan_sharded_sync
+    from repro_torch.parallel.sharding import (Sharding, Spec, gather_tree,
+                                               is_spec, layer_specs,
+                                               opt_state_specs, param_specs,
+                                               spec_axes)
+    from repro_torch.parallel.tensor_parallel import gather_dims, sum_across
+    from repro_torch.runtime.fault import elastic_reshard
+    from repro_torch.train.loop import Trainer, shardings_of
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    on_card = dev_name == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_name, 0) if on_card else torch.device("cpu")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=SHARD["world"], rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    t_lap = [time.perf_counter()]
+    sections: dict = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        sections[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    try:
+        mesh = make_mesh(SHARD["mesh"], ("pod", "data", "model"), device=dev)
+        pctx = make_parallel_ctx(mesh)
+        rec: dict = {"rank": rank, "coords": mesh.coords}
+        lap("mesh")
+        cfg = get(SHARD["arch"])
+        model = build_model(cfg)
+        opt_cfg = AdamWConfig(lr=SHARD["lr"], warmup_steps=1, decay_steps=10)
+        tr = Trainer(model, opt_cfg, pctx=pctx, device=dev)
+        # drawn on the card (the host's one stream is slow for 8 ranks at
+        # once); the same seed on every rank gives every rank the same tree
+        full = {"params": model.init(torch.Generator(dev).manual_seed(0),
+                                     device=dev)}
+        full["opt"] = adamw_init(full["params"], opt_cfg)
+        state = tr.shard_state(full)
+        specs = param_specs(full["params"], cfg, pctx)
+        ospecs = opt_state_specs(full["opt"], full["params"], cfg, pctx)
+        lap("init")
+
+        # bytes a rank holds against the reckoning from the specs
+        def nbytes(tree):
+            return sum(t.numel() * t.element_size()
+                       for t in tree_util.leaves(tree))
+
+        def reckoned(tree, sp):
+            tot = 0
+            for t, s in zip(tree_util.leaves(tree),
+                            tree_util.leaves(sp, is_leaf=is_spec)):
+                tot += (t.numel() * t.element_size()
+                        // math.prod(Sharding(mesh, s).parts(t.shape)))
+            return tot
+
+        both = [(t, s) for t, s in zip(
+            tree_util.leaves(full["params"]),
+            tree_util.leaves(specs, is_leaf=is_spec))
+            if {"data", "model"} <= {a for e in s for a in spec_axes(e)}]
+        both_local = [t for t, s in zip(
+            tree_util.leaves(state["params"]),
+            tree_util.leaves(specs, is_leaf=is_spec))
+            if {"data", "model"} <= {a for e in s for a in spec_axes(e)}]
+        rec["bytes"] = {
+            "params": nbytes(state["params"]),
+            "params_reckoned": reckoned(full["params"], specs),
+            "params_full": nbytes(full["params"]),
+            "moments": nbytes(state["opt"]),
+            "moments_reckoned": reckoned(full["opt"], ospecs),
+            "moments_full": nbytes(full["opt"]),
+            "data_model_leaves": len(both),
+            "data_model_share": (sum(t.numel() for t in both_local)
+                                 / max(1, sum(t.numel() for t, _ in both)))}
+
+        # ---- (a) sharded train steps
+        data = SyntheticTokens(cfg, batch=SHARD["global_batch"],
+                               seq=SHARD["seq"], device=dev)
+        shardings = shardings_of(model, pctx)
+        plan, n_pod = plan_sharded_sync(state["params"], shardings, mesh)
+        want = shard_expected_combines(cfg, pctx, plan, n_pod)
+        rec["plan"] = dict(collections.Counter(plan))
+        rec["pod_buckets"] = n_pod
+        rec["expected_combines"] = want
+        seen = {}
+        sync_fn = tr.make_sync()
+
+        def capture(g):
+            seen["g"] = sync_fn(g)
+            return seen["g"]
+
+        step = tr.make_step(sync_fn=capture)
+        rec["steps"] = []
+        for i in range(SHARD["steps"]):
+            batch = data.batch_at(i)
+            sync()
+            dist.barrier()
+            ck.launches = 0
+            t0 = time.perf_counter()
+            state, m = step(state, shard_batch(batch, pctx))
+            sync()
+            wall = time.perf_counter() - t0
+            launches = ck.launches
+            rec["steps"].append({"loss": float(m["loss"]), "wall_s": wall,
+                                 "combine_launches": launches})
+            if i == 0:
+                p1 = gather_tree(state["params"], specs, mesh)
+                g1 = gather_tree(seen["g"], specs, mesh)
+                if rank == 0:
+                    ref_tr = Trainer(model, opt_cfg, device=dev)
+                    got0 = {}
+
+                    def cap0(g):
+                        got0["g"] = g
+                        return g
+
+                    s0, m0 = ref_tr.make_step(sync_fn=cap0)(full, batch)
+                    sync()
+                    reads = {}
+                    for (n, a), (_, b), (_, ga), (_, gb) in zip(
+                            tree_util.named_leaves(p1),
+                            tree_util.named_leaves(s0["params"]),
+                            tree_util.named_leaves(g1),
+                            tree_util.named_leaves(got0["g"])):
+                        reads[n] = {
+                            "param": _close_reading(a, b, SHARD_STEP_TOL),
+                            "param_max_abs": (a.float() - b.float()).abs()
+                            .max().item(),
+                            "grad_rel": ((ga.float() - gb.float()).abs().max()
+                                         / gb.float().abs().max()
+                                         .clamp(min=1e-30)).item()}
+                    rec["step0"] = {
+                        "loss_sharded": float(m["loss"]),
+                        "loss_unsharded": float(m0["loss"]),
+                        "leaves": reads,
+                        "worst_param_reading": max(r["param"]
+                                                   for r in reads.values()),
+                        "worst_grad_rel": max(r["grad_rel"]
+                                              for r in reads.values())}
+                    del s0, got0
+                del p1, g1
+            # a block is held by the ranks that differ only by pod: bit for
+            # bit the same there; replicated leaves the same on every rank
+            digest = _digest(state["params"])
+            rep = _digest({n: t for (n, t), s in zip(
+                tree_util.named_leaves(state["params"]),
+                tree_util.leaves(specs, is_leaf=is_spec)) if not any(s)})
+            both_d = [None] * SHARD["world"]
+            dist.all_gather_object(both_d, (mesh.coords, digest, rep))
+            by_block: dict = {}
+            for c, dg, _ in both_d:
+                by_block.setdefault((c["data"], c["model"]), set()).add(dg)
+            rec["steps"][-1]["blocks_equal_across_pods"] = all(
+                len(v) == 1 for v in by_block.values())
+            rec["steps"][-1]["replicated_equal_everywhere"] = len(
+                {r for *_, r in both_d}) == 1
+        lap("train")
+
+        # ---- (b) sharded prefill, then decode
+        pr, nd = SHARD["prompt"], SHARD["decode"]
+        toks = SyntheticTokens(cfg, batch=SHARD["global_batch"],
+                               seq=pr + nd, seed=5, device=dev).batch_at(0)
+        local = shard_batch(toks, pctx)["tokens"]
+        with torch.no_grad():
+            lg, caches = model.prefill(state["params"],
+                                       {"tokens": local[:, :pr]}, pctx)
+            caches = tree_util.tree_map(lambda t: F.pad(
+                t, (0, 0, 0, 0, 0, nd)).contiguous(), caches)
+            sync()
+            fd.launches = 0
+            t0 = time.perf_counter()
+            outs = [lg]
+            for i in range(nd):
+                lg, caches = model.decode_step(
+                    state["params"], caches,
+                    {"token": local[:, pr + i], "pos": pr + i}, pctx)
+                outs.append(lg)
+            sync()
+            dec_wall = time.perf_counter() - t0
+            fd_launches = fd.launches
+            logits = torch.cat(outs, dim=1)
+            # the kernel on this rank's own layer-0 cache, against its plain
+            # version (rows at the full length and at 300)
+            k0, v0 = caches["dense"]["k"][0], caches["dense"]["v"][0]
+            g = torch.Generator(device=dev).manual_seed(28 + rank)
+            B_l, K_l = k0.shape[0], k0.shape[2]
+            q = torch.randn((B_l, K_l * (cfg.n_heads // cfg.n_kv_heads),
+                             k0.shape[3]), generator=g, device=dev
+                            ).to(k0.dtype)
+            lengths = torch.tensor([pr + nd, 300][:B_l], dtype=torch.int32,
+                                   device=dev)
+            got = decode_attn(q, k0, v0, lengths)
+            want_fd = decode_attention_ref(q, k0, v0, lengths)
+            sync()
+        rec["decode"] = {
+            "local_cache": list(caches["dense"]["k"].shape),
+            "flash_decode_launches": fd_launches,
+            "launches_per_decode_step": fd_launches / nd,
+            "ms_per_decode_step": dec_wall / nd * 1e3,
+            "cache_check": {"max_abs_err": (got.float() - want_fd.float())
+                            .abs().max().item(),
+                            "reading": fd_reading(got, want_fd),
+                            "lengths": lengths.tolist()}}
+        all_logits = [None] * SHARD["world"]
+        dist.all_gather_object(all_logits, (mesh.coords, logits.cpu()))
+        full_params = gather_tree(state["params"], specs, mesh)
+        if rank == 0:
+            with torch.no_grad():
+                lg, c0 = model.prefill(full_params, {"tokens":
+                                                     toks["tokens"][:, :pr]})
+                c0 = tree_util.tree_map(lambda t: F.pad(
+                    t, (0, 0, 0, 0, 0, nd)).contiguous(), c0)
+                outs = [lg]
+                for i in range(nd):
+                    lg, c0 = model.decode_step(full_params, c0, {
+                        "token": toks["tokens"][:, pr + i], "pos": pr + i})
+                    outs.append(lg)
+                ref_logits = torch.cat(outs, dim=1).cpu()
+            per = SHARD["global_batch"] // pctx.dp_size
+            reading, err = 0.0, 0.0
+            for c, lgt in all_logits:
+                row = c["pod"] * mesh.shape["data"] + c["data"]
+                w = ref_logits[row * per:(row + 1) * per]
+                reading = max(reading, _close_reading(lgt, w,
+                                                      SHARD_BF16_TOL))
+                err = max(err, (lgt.float() - w.float()).abs().max().item())
+            rec["decode"]["logits_vs_unsharded"] = {
+                "reading": reading, "max_abs_err": err,
+                "max_abs_logit": ref_logits.abs().max().item()}
+            del c0
+        del caches, full_params
+        lap("decode")
+
+        # ---- (d) elastic reshard of the trained state
+        m1 = make_mesh(SHARD["reshard"][0], ("data", "model"), device=dev)
+        m2 = make_mesh(SHARD["reshard"][1], ("data", "model"), device=dev)
+        whole = {"params": gather_tree(state["params"], specs, mesh),
+                 "opt": gather_tree(state["opt"], ospecs, mesh)}
+
+        def layout(m):
+            c = make_parallel_ctx(m)
+            sp = {"params": param_specs(whole["params"], cfg, c),
+                  "opt": opt_state_specs(whole["opt"], whole["params"], cfg,
+                                         c)}
+            return tree_util.unflatten(whole, [
+                Sharding(m, x) for x in tree_util.leaves(sp,
+                                                         is_leaf=is_spec)])
+
+        def cut(shs):
+            return tree_util.unflatten(whole, [
+                s.shard(t) for s, t in zip(
+                    tree_util.leaves(shs,
+                                     is_leaf=lambda x: isinstance(x,
+                                                                  Sharding)),
+                    tree_util.leaves(whole))])
+
+        sh1, sh2 = layout(m1), layout(m2)
+        ckpt = Path(out_dir) / "shard_ckpt"
+        t0 = time.perf_counter()
+        save_checkpoint(str(ckpt), 3, cut(sh1), shardings=sh1)
+        save_s = time.perf_counter() - t0
+        tmpl = tree_util.tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"), whole)
+        t0 = time.perf_counter()
+        restored = elastic_reshard(str(ckpt), 3, tmpl, sh2)
+        restore_s = time.perf_counter() - t0
+        want2 = cut(sh2)
+        equal = all(a.dtype == b.dtype and a.device == b.device
+                    and torch.equal(a, b) for a, b in zip(
+                        tree_util.leaves(restored), tree_util.leaves(want2)))
+        rec["reshard"] = {"from": dict(m1.shape), "to": dict(m2.shape),
+                          "leaves": len(tree_util.leaves(want2)),
+                          "bitwise_equal": equal, "save_s": save_s,
+                          "restore_s": restore_s,
+                          "local_bytes": nbytes(restored)}
+        del whole, restored, want2, state, full
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        lap("reshard")
+
+        # ---- (c) granite's MoE layer: EP over data, TP over model
+        mcfg = dataclasses.replace(get(SHARD["moe_arch"]),
+                                   n_layers=SHARD["moe_layers"])
+        mmodel = build_model(mcfg)
+        mfull = mmodel.init(torch.Generator(dev).manual_seed(0), device=dev)
+        layer0 = tree_util.tree_map(lambda t: t[0], mfull["moe_stack"])
+        mtoks = SyntheticTokens(mcfg, batch=SHARD["global_batch"],
+                                seq=SHARD["seq"], device=dev).batch_at(0)
+        with torch.no_grad():
+            x_all = apply_norm(layer0["ln2"], embed_tokens(
+                mfull["embed"], mtoks["tokens"], mcfg), mcfg)
+        del mfull
+        gy = torch.Generator(device=dev).manual_seed(29)
+        dy_all = torch.randn(x_all.shape, generator=gy, device=dev)
+        per = SHARD["global_batch"] // pctx.dp_size
+        row = mesh.coords["pod"] * mesh.shape["data"] + mesh.coords["data"]
+        rows = slice(row * per, (row + 1) * per)
+        fspecs = layer_specs(mcfg, "moe", pctx)["ffn"]
+        names = [n for n, _ in tree_util.named_leaves(layer0["ffn"])]
+        fspec = dict(zip(names, tree_util.leaves(fspecs, is_leaf=is_spec)))
+
+        def store(n):
+            s = fspec[n]
+            if n in ("w_gate", "w_up", "w_out"):
+                return Sharding(mesh, s)            # experts: as stored
+            return Sharding(mesh, Spec(*(None if e == "data" else e
+                                         for e in s)))  # as _unfsdp leaves
+
+        lay = {n: store(n) for n in names}
+        p = tree_util.unflatten(layer0["ffn"], [
+            lay[n].shard(t).requires_grad_(True)
+            for n, t in tree_util.named_leaves(layer0["ffn"])])
+        x = x_all[rows].clone().requires_grad_(True)
+        ids = []
+        route_orig = moe.route
+
+        def route_rec(*a):
+            out = route_orig(*a)
+            ids.append(out[1].detach())
+            return out
+
+        moe.route = route_rec
+        try:
+            sync()
+            ck.launches = 0
+            t0 = time.perf_counter()
+            y = moe.apply_moe(p, x, mcfg, pctx)
+            (y.float() * dy_all[rows]).sum().backward()
+            sync()
+            moe_wall = time.perf_counter() - t0
+            moe_launches = ck.launches
+        finally:
+            moe.route = route_orig
+        grads = {}
+        for n, t in tree_util.named_leaves(p):
+            gfull = gather_dims(t.grad, lay[n], range(t.dim()))
+            expert = n in ("w_gate", "w_up", "w_out")
+            grads[n] = sum_across(gfull, mesh.group(
+                "pod" if expert else ("pod", "data")))
+        mine = (mesh.coords, y.detach().cpu(), x.grad.cpu(), ids[0].cpu())
+        every = [None] * SHARD["world"]
+        dist.all_gather_object(every, mine)
+        rec["moe"] = {"local_experts": int(p["w_gate"].shape[0]),
+                      "local_expert_hidden": int(p["w_gate"].shape[2]),
+                      "combine_launches": moe_launches,
+                      "wall_ms_fwd_bwd": moe_wall * 1e3}
+        if rank == 0:
+            pf = tree_util.tree_map(lambda t: t.detach().clone()
+                                    .requires_grad_(True), layer0["ffn"])
+            xf = x_all.clone().requires_grad_(True)
+            eids = []
+
+            def route_emul(*a):
+                out = route_orig(*a)
+                eids.append(out[1].detach())
+                return out
+
+            moe.route = route_emul
+            try:
+                yf = moe.emulate_ep(pf, xf, mcfg, ep=mesh.shape["data"],
+                                    pods=mesh.shape["pod"])
+            finally:
+                moe.route = route_orig
+            (yf.float() * dy_all).sum().backward()
+            same_routes, ry, rdx = True, 0.0, 0.0
+            for c, yy, dx, rid in every:
+                r_ = c["pod"] * mesh.shape["data"] + c["data"]
+                sl = slice(r_ * per, (r_ + 1) * per)
+                same_routes &= bool(torch.equal(
+                    rid[0], eids[c["pod"]][c["data"]].cpu()))
+                ry = max(ry, _close_reading(yy, yf[sl].detach().cpu(),
+                                            SHARD_BF16_TOL))
+                rdx = max(rdx, _close_reading(dx, xf.grad[sl].cpu(),
+                                              SHARD_BF16_TOL))
+            rg = {n: _close_reading(grads[n], t.grad, SHARD_BF16_TOL)
+                  for n, t in tree_util.named_leaves(pf)}
+            rec["moe"].update({"routes_equal": same_routes,
+                               "y_reading": ry, "dx_reading": rdx,
+                               "grad_readings": rg})
+        lap("moe")
+        rec["sections_s"] = sections
+        (Path(out_dir) / f"shard_rank{rank}.json").write_text(
+            json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_phase(smi: str) -> dict:
+    """Phase 28: spawn the eight ranks, read their records, emit the line,
+    hold the gates; returns the readings of combine and flash_decode for the
+    kernels line."""
+    from repro_torch.configs import get
+    for f in OUT.glob("shard_rank*.json"):
+        f.unlink()
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        shard_worker, args=(free_port(), str(OUT)), nprocs=SHARD["world"],
+        join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((OUT / f"shard_rank{r}.json").read_text())
+             for r in range(SHARD["world"])]
+    r0 = ranks[0]
+    want = r0["expected_combines"]["total"]
+    emit({"phase": "shard", "arch": SHARD["arch"],
+          "mesh": dict(zip(("pod", "data", "model"), SHARD["mesh"])),
+          "backend": "gloo", "device_per_rank": "cuda:0",
+          "global_batch": SHARD["global_batch"], "seq": SHARD["seq"],
+          "coords": [r["coords"] for r in ranks],
+          "bytes_per_rank": {r["rank"]: r["bytes"] for r in ranks},
+          "plan": r0["plan"], "pod_buckets": r0["pod_buckets"],
+          "expected_combines_per_step": r0["expected_combines"],
+          "steps": {r["rank"]: r["steps"] for r in ranks},
+          "step0": {k: v for k, v in r0["step0"].items() if k != "leaves"},
+          "step0_leaves": r0["step0"]["leaves"],
+          "decode": {r["rank"]: r["decode"] for r in ranks},
+          "moe": {r["rank"]: r["moe"] for r in ranks},
+          "reshard": {r["rank"]: r["reshard"] for r in ranks},
+          "sections_s_rank0": r0["sections_s"], "wall_s": wall,
+          "tolerances": {"step": SHARD_STEP_TOL, "bf16": SHARD_BF16_TOL,
+                         "grad": SHARD_GRAD_TOL,
+                         "flash_decode": FD_TOL_TEXT},
+          "card": smi})
+    bad = []
+    s0 = r0["step0"]
+    if not abs(s0["loss_sharded"] - s0["loss_unsharded"]) < SHARD_STEP_TOL:
+        bad.append(f"(a) step-0 loss {s0['loss_sharded']} against "
+                   f"{s0['loss_unsharded']}")
+    if s0["worst_param_reading"] > 1 or s0["worst_grad_rel"] > SHARD_GRAD_TOL:
+        bad.append(f"(a) updated leaves (reading {s0['worst_param_reading']})"
+                   f" or synced gradients ({s0['worst_grad_rel']})")
+    for r in ranks:
+        b = r["bytes"]
+        if (b["params"] != b["params_reckoned"]
+                or b["moments"] != b["moments_reckoned"]
+                or b["data_model_share"] != 0.25):
+            bad.append(f"(a) rank {r['rank']} bytes {b}")
+        for i, s in enumerate(r["steps"]):
+            if s["combine_launches"] != want:
+                bad.append(f"(a) rank {r['rank']} step {i}: "
+                           f"{s['combine_launches']} combine launches, "
+                           f"the plan says {want}")
+            if not (s["blocks_equal_across_pods"]
+                    and s["replicated_equal_everywhere"]
+                    and math.isfinite(s["loss"])):
+                bad.append(f"(a) rank {r['rank']} step {i}: {s}")
+        d = r["decode"]
+        if (d["local_cache"][3] != 2 or d["launches_per_decode_step"]
+                != get(SHARD["arch"]).n_layers
+                or d["cache_check"]["reading"] > 1):
+            bad.append(f"(b) rank {r['rank']}: {d}")
+        if not r["reshard"]["bitwise_equal"]:
+            bad.append(f"(d) rank {r['rank']}: {r['reshard']}")
+        m = r["moe"]
+        if m["local_experts"] != 16 or m["local_expert_hidden"] != 256 \
+                or m["combine_launches"] == 0:
+            bad.append(f"(c) rank {r['rank']}: {m}")
+    lv = r0["decode"]["logits_vs_unsharded"]
+    if lv["reading"] > 1:
+        bad.append(f"(b) logits against the unsharded decode: {lv}")
+    m0 = r0["moe"]
+    if not (m0["routes_equal"] and m0["y_reading"] <= 1
+            and m0["dx_reading"] <= 1
+            and max(m0["grad_readings"].values()) <= 1):
+        bad.append(f"(c) against emulate_ep: {m0}")
+    if bad:
+        raise AssertionError("shard: " + "; ".join(bad))
+    steps = len(r0["steps"])
+    return {"combine": {
+                "path": "shard (rank 0): TP sums, ZeRO reduce-scatters, "
+                        "sync, norm, loss",
+                "launches": sum(s["combine_launches"] for s in r0["steps"]),
+                "launches_per_step": want, "steps": steps,
+                "moe_layer_fwd_bwd": m0["combine_launches"]},
+            "flash_decode": {
+                "path": "shard decode (rank 0, 2 of 4 KV heads)",
+                "launches": r0["decode"]["flash_decode_launches"],
+                "launches_per_decode_step":
+                    r0["decode"]["launches_per_decode_step"],
+                "reading": r0["decode"]["cache_check"]["reading"],
+                "max_abs_err": r0["decode"]["cache_check"]["max_abs_err"]}}
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -3887,11 +4515,17 @@ def main() -> int:
     ssd_entry["deepseek"] = ds["ssd_scan"]
     mm_entry["deepseek"] = ds["matmul_tile"]
 
+    # ------------------------------------------------------------ 28. shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard = shard_phase(smi)
+
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "flash_decode", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": TPU_SRC, "launches": launches,
+        "replaces": TPU_SRC, "launches": launches + shard["flash_decode"][
+            "launches"],
         "max_abs_err": max(r["max_err"] for r in results),
         "ms": fd_serve["kernel_ms"], "plain_ms": fd_serve["plain_ms"],
         "bound_ms": fd_serve["bound_ms"], "bound_by": fd_serve["bound_by"],
@@ -3899,19 +4533,24 @@ def main() -> int:
         "max_reading": max(r["reading"] for r in results), "path": "serve",
         "launches_per_decode_step": launches / calls,
         "hybrid": hybrid["flash_decode"], "moe": moe_readings["flash_decode"],
-        "deepseek": ds["flash_decode"],
+        "deepseek": ds["flash_decode"], "shard": shard["flash_decode"],
+        "launches_by_path": {"serve": launches,
+                             "shard": shard["flash_decode"]["launches"]},
         "long": {x: timings["long"][x] for x in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
             "library_ms", "share_of_bound")}}, {
         "name": "allreduce_combine", "route": "cuda", "source": COMBINE_SRC,
-        "replaces": COMBINE_TPU_SRC, "launches": dp_launches,
+        "replaces": COMBINE_TPU_SRC,
+        "launches": dp_launches + shard["combine"]["launches"],
         "max_abs_err": c_max_err, "ms": c_ms, "plain_ms": c_plain_ms,
         "bound_ms": c_bound_ms,
         "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
         "library_ms": c_lib_ms, "tol": 1e-2, "path": "dp (rank 0)",
         "launches_per_synced_step": dp_launches / max(dp_steps, 1),
         "moe_ep": moe_readings["combine"],
-        "deepseek": ds["allreduce_combine"]},
+        "deepseek": ds["allreduce_combine"], "shard": shard["combine"],
+        "launches_by_path": {"dp": dp_launches,
+                             "shard": shard["combine"]["launches"]}},
         ssd_entry, mm_entry]})
     (OUT / "chip_smoke.json").write_text(json.dumps(LINES, indent=1))
     print(smi, flush=True)

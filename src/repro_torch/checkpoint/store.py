@@ -7,7 +7,11 @@ dict keys joined by dots, ``None`` subtrees skipped), and a
 ``manifest.json`` with each leaf's shape, original dtype and the sha256 of
 the saved bytes. bfloat16 leaves are widened losslessly to float32 on disk
 with ``"dtype": "bfloat16"`` in the manifest. A save writes into ``.tmp-N``
-and commits with one rename.
+and commits with one rename. A sharded tree (this rank's blocks, with a
+tree of :class:`~repro_torch.parallel.sharding.Sharding`) is saved whole:
+every leaf gathered, rank 0 writing; a restore with ``shardings`` cuts
+each rank's block, so a checkpoint taken on one mesh restores onto another
+(``runtime.fault.elastic_reshard``).
 """
 
 from __future__ import annotations
@@ -47,9 +51,27 @@ def to_numpy(x) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save_checkpoint(path: str, step: int, tree, *, extra: dict | None = None
-                    ) -> str:
-    """Atomic checkpoint write; returns the committed directory."""
+def save_checkpoint(path: str, step: int, tree, *, extra: dict | None = None,
+                    shardings=None) -> str:
+    """Atomic checkpoint write; returns the committed directory. With
+    ``shardings`` (a tree of ``Sharding`` shaped like ``tree``), ``tree``
+    holds this rank's blocks: every rank gathers each leaf (a collective),
+    rank 0 writes, and every rank returns once the checkpoint is
+    committed."""
+    if shardings is not None:
+        import torch.distributed as dist
+        shards = tree_util.leaves(shardings, is_leaf=_is_sharding)
+        mesh = shards[0].mesh if shards else None
+        full = [s.gather(x) for s, x in zip(shards, tree_util.leaves(tree),
+                                             strict=True)]
+        final = os.path.join(path, f"step-{step:08d}")
+        if mesh is None or mesh.rank == 0:
+            final = save_checkpoint(path, step,
+                                    tree_util.unflatten(tree, full),
+                                    extra=extra)
+        del full
+        dist.barrier()
+        return final
     tmp = os.path.join(path, f".tmp-{step}")
     final = os.path.join(path, f"step-{step:08d}")
     if os.path.exists(tmp):
@@ -79,17 +101,27 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _is_sharding(x) -> bool:
+    from repro_torch.parallel.sharding import Sharding
+    return isinstance(x, Sharding)
+
+
 def restore_checkpoint(path: str, step: int, template, *, device=None,
-                       verify: bool = True):
+                       verify: bool = True, shardings=None):
     """Restore into the structure of ``template`` (a tree of tensors; meta
     tensors give shapes and dtypes only). Each leaf takes its template's
-    dtype and goes to ``device``, or else to its template's device.
+    dtype and goes to ``device``, or else to its template's device. With
+    ``shardings`` (a tree of ``Sharding`` shaped like ``template``, whose
+    leaves hold the global shapes) each leaf is this rank's block, on the
+    mesh's device unless ``device`` says otherwise.
     Returns (tree, manifest); raises ``IOError`` on a sha256 mismatch."""
+    shards = (tree_util.leaves(shardings, is_leaf=_is_sharding)
+              if shardings is not None else None)
     d = os.path.join(path, f"step-{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     out = []
-    for name, tmpl in tree_util.named_leaves(template):
+    for i, (name, tmpl) in enumerate(tree_util.named_leaves(template)):
         arr = np.load(os.path.join(d, name + ".npy"))
         meta = manifest["leaves"][name]
         if verify and _sha256(arr) != meta["sha256"]:
@@ -97,9 +129,12 @@ def restore_checkpoint(path: str, step: int, template, *, device=None,
         if list(arr.shape) != list(tmpl.shape):
             raise ValueError(f"{name}: checkpoint shape {list(arr.shape)}, "
                              f"template {list(tmpl.shape)}")
-        dev = device if device is not None else tmpl.device
-        out.append(torch.from_numpy(np.array(arr))   # a copy; 0-d stays 0-d
-                   .to(device=dev, dtype=tmpl.dtype))
+        dev = (device if device is not None else
+               shards[i].mesh.device if shards is not None else tmpl.device)
+        t = torch.from_numpy(np.array(arr))         # a copy; 0-d stays 0-d
+        if shards is not None:
+            t = shards[i].shard(t)
+        out.append(t.to(device=dev, dtype=tmpl.dtype))
     return tree_util.unflatten(template, out), manifest
 
 

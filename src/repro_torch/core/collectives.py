@@ -48,18 +48,36 @@ def _wire(t: torch.Tensor, group) -> torch.Tensor:
     return t.cpu() if host_staged(t, group) else t
 
 
+#: dtypes moved as their bytes: neither gloo nor NCCL gathers int16, and
+#: gloo builds differ in which collectives take 16-bit floats
+_AS_BYTES = (torch.int16, torch.bfloat16, torch.float16)
+
+
 def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
-    """(size, *x.shape): every rank's ``x`` in group-rank order. int16
-    travels as its bytes (neither gloo nor NCCL gathers int16 as such)."""
+    """(size, *x.shape): every rank's ``x`` in group-rank order. 16-bit
+    dtypes travel as their bytes (exact)."""
     w = _wire(x.contiguous(), group)
-    if w.dtype == torch.int16:
-        w = w.view(torch.uint8)
+    if w.dtype in _AS_BYTES:
+        w = w.reshape(-1).view(torch.uint8)
     parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, w, group=group)
     out = torch.stack(parts)
-    if x.dtype == torch.int16:
-        out = out.view(torch.int16)
+    if x.dtype in _AS_BYTES:
+        out = out.view(x.dtype).reshape((len(parts),) + tuple(x.shape))
     return out.to(x.device)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s dim-0 blocks exchanged over ``group`` with equal splits (the
+    reference's ``lax.all_to_all(x, axis, 0, 0, tiled=False)``): block i
+    goes to the group's i-th rank, and block i of the result came from it.
+    Moved as bytes (exact for every dtype); gloo takes a CUDA tensor
+    through host memory, staged here explicitly. Not differentiable."""
+    src = x.contiguous()
+    wire = _wire(src, group).reshape(-1).view(torch.uint8)
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=group)
+    return out.view(x.dtype).reshape(x.shape).to(x.device)
 
 
 def reduce_scatter_combine(x: torch.Tensor, group) -> torch.Tensor:
@@ -69,10 +87,8 @@ def reduce_scatter_combine(x: torch.Tensor, group) -> torch.Tensor:
     ``combine`` sums them in group-rank order."""
     k = dist.get_world_size(group)
     n = x.shape[0]
-    send = _wire(x.reshape(k, -1).contiguous(), group)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    shard = combine_parts(recv.to(x.device), op="sum")
+    recv = all_to_all(x.reshape(k, -1), group)
+    shard = combine_parts(recv, op="sum")
     return shard.reshape((n // k,) + tuple(x.shape[1:]))
 
 

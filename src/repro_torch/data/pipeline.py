@@ -6,8 +6,8 @@ numpy exactly as the reference draws it, so the port's batches are the
 reference's int32 tokens bit for bit, placed on the requested device (cuda
 unless the caller says otherwise). Restarts resume exactly, which is what
 makes failure replay exact (:mod:`repro_torch.runtime.fault`).
-``shard_batch`` and ``make_batch_specs`` wait for sharding (ROADMAP.md queue
-1 item 6).
+``make_batch_specs`` and ``shard_batch`` lay a global batch out over a
+mesh's batch axes (:mod:`repro_torch.parallel.sharding`).
 """
 
 from __future__ import annotations
@@ -63,6 +63,22 @@ class SyntheticTokens:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def make_batch_specs(cfg: ArchConfig, pctx) -> dict:
+    """The specs of a train batch: rows over the batch axes."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.parallel.sharding import batch_specs
+    return batch_specs(cfg, ShapeConfig("train", 0, 0, "train"), pctx)
+
+
+def shard_batch(batch: dict, pctx) -> dict:
+    """This rank's rows of a global ``batch``: block ``i`` of the rows for
+    the rank whose ``(pod, data)`` coordinate is ``i`` in row-major order,
+    the same rows on every ``model`` rank."""
+    from repro_torch.parallel.sharding import Sharding, Spec
+    rows = Sharding(pctx.mesh, Spec(tuple(pctx.dp_axes)))
+    return {k: rows.shard(v) for k, v in batch.items()}
 
 
 class Prefetcher:

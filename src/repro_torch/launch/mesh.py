@@ -1,13 +1,18 @@
-"""Data-parallel process meshes over ``torch.distributed``.
+"""Process meshes over ``torch.distributed``.
 
 Counterpart of ``repro.launch.mesh``. A :class:`ProcessMesh` lays the ranks
 of an initialized default process group out on named axes, row-major with
 the last axis fastest, as ``jax.make_mesh`` lays out devices: on
 ``(("pod", 2), ("data", 2))`` rank ``r`` sits at ``pod = r // 2``, ``data =
-r % 2``. It holds one process group per axis (the ranks that differ only
-along it, in ascending order, so a rank's place in its group is its
-coordinate) and one over the whole mesh. ``"pod"`` is the slow, inter axis
-of the hierarchical collectives and ``"data"`` the fast, intra one.
+r % 2``. It holds one process group over every non-empty set of its axes
+(the ranks that differ only along those axes, in ascending order): one per
+axis, so a rank's place in an axis group is its coordinate, and one per
+pair, e.g. ``("pod", "data")`` for the batch of a ``(pod, data, model)``
+mesh. ``"pod"`` is the slow, inter axis of the hierarchical collectives,
+``"data"`` the fast, intra one and ``"model"`` the tensor/expert-parallel
+one. :class:`AbstractMesh` is the same layout without processes (the
+counterpart of ``jax.sharding.AbstractMesh``): the sharding rules and the
+GVAS map need only axis names and sizes.
 
 Nothing here picks an address or starts processes: callers run
 ``torch.distributed.init_process_group`` (``tcp://localhost:<port>``, world
@@ -24,7 +29,34 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 
-class ProcessMesh:
+class AbstractMesh:
+    """Named axes and their sizes, row-major (the last axis fastest)."""
+
+    def __init__(self, shape: tuple[int, ...], axes: tuple[str, ...]):
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and axes {axes} differ in length")
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, (int(n) for n in shape)))
+        self._strides = {a: math.prod(shape[i + 1:])
+                         for i, a in enumerate(axes)}
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def coords_of(self, rank: int) -> dict:
+        """The mesh coordinates of ``rank``."""
+        return {a: (rank // self._strides[a]) % self.shape[a]
+                for a in self.axis_names}
+
+    def rank_of(self, coords: dict) -> int:
+        return sum(coords[a] * self._strides[a] for a in self.axis_names)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.shape})"
+
+
+class ProcessMesh(AbstractMesh):
     """Named axes over the ranks of the default process group."""
 
     def __init__(self, shape: tuple[int, ...], axes: tuple[str, ...], *,
@@ -32,41 +64,41 @@ class ProcessMesh:
         if not dist.is_initialized():
             raise RuntimeError("ProcessMesh needs torch.distributed "
                                "initialized (init_process_group) first")
-        if len(shape) != len(axes):
-            raise ValueError(f"shape {shape} and axes {axes} differ in length")
+        super().__init__(shape, axes)
         world = dist.get_world_size()
-        if math.prod(shape) != world:
-            raise ValueError(f"mesh {dict(zip(axes, shape))} holds "
-                             f"{math.prod(shape)} ranks; the world has {world}")
-        self.axis_names = tuple(axes)
-        self.shape = dict(zip(axes, shape))
+        if self.size != world:
+            raise ValueError(f"mesh {self.shape} holds {self.size} ranks; "
+                             f"the world has {world}")
         self.rank = dist.get_rank()
         self.device = resolve_device(device)
-        strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
-        self.coords = {a: (self.rank // s) % n
-                       for a, s, n in zip(axes, strides, shape)}
+        self.coords = self.coords_of(self.rank)
         # every rank creates every group, in the same order
         self._groups: dict[tuple[str, ...], object] = {}
-        for i, axis in enumerate(axes):
-            others = [range(n) for j, n in enumerate(shape) if j != i]
-            for fixed in itertools.product(*others):
-                ranks = []
-                for c in range(shape[i]):
-                    coord = list(fixed)
-                    coord.insert(i, c)
-                    ranks.append(sum(x * s for x, s in zip(coord, strides)))
-                g = dist.new_group(ranks)
-                if self.rank in ranks:
-                    self._groups[(axis,)] = g
-        self._groups[tuple(sorted(axes))] = dist.new_group(
-            list(range(world)))
+        for n in range(1, len(axes) + 1):
+            for span in itertools.combinations(self.axis_names, n):
+                key = tuple(sorted(span))
+                if n == len(axes):
+                    self._groups[key] = dist.new_group(list(range(world)))
+                    continue
+                fixed_axes = [a for a in self.axis_names if a not in span]
+                for fixed in itertools.product(
+                        *(range(self.shape[a]) for a in fixed_axes)):
+                    base = dict(zip(fixed_axes, fixed))
+                    ranks = sorted(self.rank_of({**base, **dict(zip(span, c))})
+                                   for c in itertools.product(
+                                       *(range(self.shape[a]) for a in span)))
+                    g = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[key] = g
 
     def group(self, axes) -> object:
-        """The process group spanning ``axes`` (one axis, or all of them)."""
+        """The process group spanning ``axes`` (an axis name, or a tuple of
+        them in any order): the ranks that share this rank's coordinates on
+        every other axis, in ascending rank order."""
         key = (axes,) if isinstance(axes, str) else tuple(sorted(axes))
         if key not in self._groups:
-            raise ValueError(f"no group over {axes}: a mesh has one per axis "
-                             f"and one over all of {self.axis_names}")
+            raise ValueError(f"no group over {axes}: the mesh's axes are "
+                             f"{self.axis_names}")
         return self._groups[key]
 
     def __repr__(self) -> str:
@@ -79,3 +111,14 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device=None
     ("pod", "data"))`` on four ranks. Its groups use the default group's
     backend."""
     return ProcessMesh(shape, axes, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None
+                         ) -> ProcessMesh:
+    """The reference's production mesh over an initialized world of its
+    size: single-pod (16, 16) = ("data", "model"), multi-pod (2, 16, 16) =
+    ("pod", "data", "model")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return ProcessMesh(shape, axes, device=device)
+

@@ -28,7 +28,9 @@ from repro_torch.config import ArchConfig
 from repro_torch.kernels.flash_decode.ops import decode_attn
 from repro_torch.kernels.flash_decode.ref import NEG_INF, decode_attention_ref
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
-                                       dtype_of, init_norm)
+                                       dtype_of, init_norm, tp_active)
+from repro_torch.parallel.tensor_parallel import (copy_to_model, gather_leaf,
+                                                  sum_over_model)
 
 
 def _pos_vec(pos, B: int, device) -> torch.Tensor:
@@ -75,12 +77,106 @@ def init_gqa(gen, cfg: ArchConfig, d: int, device) -> dict:
     return p
 
 
-def _head_mask(cfg: ArchConfig, out: torch.Tensor) -> torch.Tensor:
+def _head_mask(cfg: ArchConfig, out: torch.Tensor,
+               first: int = 0) -> torch.Tensor:
+    """Zero the padding heads of ``out`` (B, S, h, d), whose heads are the
+    global heads ``first .. first + h - 1``."""
     Hp = _padded_heads(cfg)
     if Hp == cfg.n_heads:
         return out
-    mask = (torch.arange(Hp, device=out.device) < cfg.n_heads).to(out.dtype)
+    heads = first + torch.arange(out.shape[2], device=out.device)
+    mask = (heads < cfg.n_heads).to(out.dtype)
     return out * mask[None, None, :, None]
+
+
+# ----------------------------------------------------- tensor parallelism
+def gqa_tp(cfg: ArchConfig, pctx) -> bool:
+    """Whether GQA runs split over ``model``: its ``param_spec`` shards the
+    (padded) query heads there iff they divide."""
+    return tp_active(pctx) and _padded_heads(cfg) % pctx.tp_size == 0
+
+
+def _model_block(n: int, pctx) -> slice:
+    """This rank's block of ``n`` items split over the ``model`` axis."""
+    per = n // pctx.tp_size
+    m = pctx.mesh.coords[pctx.tp_axis]
+    return slice(m * per, (m + 1) * per)
+
+
+def _gathered_over_model(p: dict, cfg: ArchConfig, pctx, names) -> dict:
+    """``p`` with the leaves ``names`` gathered whole over ``model`` (used
+    replicated: backward keeps this rank's block of the gradient)."""
+    from repro_torch.parallel.sharding import Sharding, layer_specs
+    specs = layer_specs(cfg, "dense", pctx)["attn"]
+    return {k: (gather_leaf(v, Sharding(pctx.mesh, specs[k]), pctx,
+                            axes=(pctx.tp_axis,))
+                if k in names and isinstance(v, torch.Tensor) else v)
+            for k, v in p.items()}
+
+
+def _mha_ize(cfg: ArchConfig, tp: int) -> bool:
+    """The reference's ``mha_ize``: KV repeated to one head per (padded)
+    query head when those are no multiple of the KV heads, or when the
+    query heads split over ``model`` and the KV heads do not."""
+    Hp, K = _padded_heads(cfg), cfg.n_kv_heads
+    return Hp % K != 0 or (tp > 1 and Hp % tp == 0 and K % tp != 0)
+
+
+def _repeat_kv(t: torch.Tensor, Hp: int) -> torch.Tensor:
+    K = t.shape[2]
+    return t.repeat_interleave(-(-Hp // K), dim=2)[:, :, :Hp]
+
+
+def _gqa_tp_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions, pctx):
+    """This rank's query heads and their KV heads under GQA tensor
+    parallelism: ``q`` (B, S, Hp/tp, hd) from the local ``wq`` columns; ``k``,
+    ``v`` from the local ``wk``/``wv`` when the KV heads split, else (the
+    reference's ``mha_ize``) the whole KV computed replicated, repeated to
+    Hp heads, and this rank's block of them. The counterpart of the
+    reference's ``_qkv_hint``: the local head counts are checked."""
+    tp = pctx.tp_size
+    Hp, K = _padded_heads(cfg), cfg.n_kv_heads
+    if p["wq"].shape[1] != Hp // tp:
+        raise ValueError(f"{cfg.name}: wq holds {p['wq'].shape[1]} heads on "
+                         f"this rank, not {Hp} / {tp}")
+    xc = copy_to_model(x, pctx)
+    q = torch.einsum("bsd,dhk->bshk", xc, p["wq"])
+    if cfg.attn_bias:
+        q = q + p["bq"]
+    if _mha_ize(cfg, tp):
+        names = ("wk", "wv", "bk", "bv") if K % tp == 0 else ()
+        pf = _gathered_over_model(p, cfg, pctx, names)
+        k = torch.einsum("bsd,dhk->bshk", x, pf["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, pf["wv"])
+        if cfg.attn_bias:
+            k, v = k + pf["bk"], v + pf["bv"]
+        blk = _model_block(Hp, pctx)
+        k = copy_to_model(_repeat_kv(k, Hp), pctx)[:, :, blk]
+        v = copy_to_model(_repeat_kv(v, Hp), pctx)[:, :, blk]
+    else:
+        if p["wk"].shape[1] != K // tp:
+            raise ValueError(f"{cfg.name}: wk holds {p['wk'].shape[1]} KV "
+                             f"heads on this rank, not {K} / {tp}")
+        k = torch.einsum("bsd,dhk->bshk", xc, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", xc, p["wv"])
+        if cfg.attn_bias:
+            k, v = k + p["bk"], v + p["bv"]
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _cache_block(t: torch.Tensor, pctx) -> torch.Tensor:
+    """A (B, S, K, hd) cache computed whole, cut as ``cache_specs`` lays it
+    over ``model``: its KV heads if they divide, else its head dim if that
+    does, else whole."""
+    tp = pctx.tp_size
+    if t.shape[2] % tp == 0:
+        return t[:, :, _model_block(t.shape[2], pctx)]
+    if t.shape[3] % tp == 0:
+        return t[..., _model_block(t.shape[3], pctx)]
+    return t
 
 
 def gqa_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions) -> tuple:
@@ -108,27 +204,57 @@ def _write_kv(cache: torch.Tensor, pos_b: torch.Tensor,
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
-               pos) -> tuple[torch.Tensor, dict]:
+               pos, pctx=None) -> tuple[torch.Tensor, dict]:
     """x: (B,1,d); cache k/v: (B,S,K,hd), written IN PLACE at ``pos``
     (scalar or per-row (B,) for slot-based continuous batching); a write at
-    ``pos >= S`` is dropped and the row then attends to all of S."""
+    ``pos >= S`` is dropped and the row then attends to all of S. Under
+    tensor parallelism the cache holds this rank's KV heads (as prefill
+    left it) and the kernel runs on them; where ``cache_specs`` splits the
+    head dim instead, the cache is gathered over ``model`` for the kernel."""
     B = x.shape[0]
     pos_b = _pos_vec(pos, B, x.device)
-    q, k_new, v_new = gqa_qkv(p, x, cfg, pos_b[:, None])
     k, v = cache["k"], cache["v"]
-    _write_kv(k, pos_b, k_new[:, 0])
-    _write_kv(v, pos_b, v_new[:, 0])
-    S, K = k.shape[1], k.shape[2]
-    Hp = q.shape[2]
-    ka, va = k, v
-    if Hp % K != 0:
-        r = -(-Hp // K)
-        ka = k.repeat_interleave(r, dim=2)[:, :, :Hp].contiguous()
-        va = v.repeat_interleave(r, dim=2)[:, :, :Hp].contiguous()
+    first = 0
+    if gqa_tp(cfg, pctx):
+        q, k_new, v_new = _gqa_tp_qkv(p, x, cfg, pos_b[:, None], pctx)
+        first = _model_block(_padded_heads(cfg), pctx).start
+        _write_kv(k, pos_b, k_new[:, 0])
+        _write_kv(v, pos_b, v_new[:, 0])
+        ka, va = k, v
+    elif tp_active(pctx):
+        # replicated attention over a cache cut as prefill cut it
+        # (_cache_block of the mha_ize'd KV): write this rank's block of
+        # the new KV, gather the cut dim over model for the kernel
+        p = _gathered_over_model(p, cfg, pctx, tuple(p))
+        q, k_new, v_new = gqa_qkv(p, x, cfg, pos_b[:, None])
+        if _mha_ize(cfg, 1):
+            k_new = _repeat_kv(k_new, q.shape[2])
+            v_new = _repeat_kv(v_new, q.shape[2])
+        k_blk = _cache_block(k_new, pctx)
+        _write_kv(k, pos_b, k_blk[:, 0])
+        _write_kv(v, pos_b, _cache_block(v_new, pctx)[:, 0])
+        ka, va = k, v
+        cut = [d for d in (2, 3) if k_blk.shape[d] != k_new.shape[d]]
+        if cut:
+            from repro_torch.parallel.sharding import Sharding, Spec
+            from repro_torch.parallel.tensor_parallel import gather_dims
+            sh = Sharding(pctx.mesh, Spec(*([None] * cut[0]), pctx.tp_axis))
+            ka, va = (gather_dims(t, sh, cut) for t in (k, v))
+    else:
+        q, k_new, v_new = gqa_qkv(p, x, cfg, pos_b[:, None])
+        _write_kv(k, pos_b, k_new[:, 0])
+        _write_kv(v, pos_b, v_new[:, 0])
+        ka, va = k, v
+        Hp, K = q.shape[2], k.shape[2]
+        if Hp % K != 0:
+            ka, va = _repeat_kv(k, Hp), _repeat_kv(v, Hp)
+    S = k.shape[1]
     length = (pos_b + 1).clamp(max=S).to(torch.int32)
-    out = decode_attn(q[:, 0], ka, va, length)[:, None]
-    out = _head_mask(cfg, out)
+    out = decode_attn(q[:, 0], ka.contiguous(), va.contiguous(), length)
+    out = _head_mask(cfg, out[:, None], first)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if gqa_tp(cfg, pctx):
+        out = sum_over_model(out, pctx)
     return out, cache
 
 
@@ -286,21 +412,33 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
 
 
 def gqa_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
-                  causal: bool = True) -> tuple[torch.Tensor, dict]:
+                  causal: bool = True, pctx=None) -> tuple[torch.Tensor, dict]:
     """Full-sequence (train/prefill) GQA. Returns (out, cache). KV is
-    repeated to one head per query head when the (padded) query heads are no
-    multiple of the KV heads, as the reference's ``mha_ize`` does on one
-    device."""
-    q, k, v = gqa_qkv(p, x, cfg, positions)
-    Hp, K = q.shape[2], k.shape[2]
-    if Hp % K != 0:
-        r = -(-Hp // K)
-        k = k.repeat_interleave(r, dim=2)[:, :, :Hp]
-        v = v.repeat_interleave(r, dim=2)[:, :, :Hp]
+    repeated to one head per query head when the (padded) query heads are
+    no multiple of the KV heads, as the reference's ``mha_ize`` does, and
+    under tensor parallelism also when the query heads split over
+    ``model`` and the KV heads do not. Under tensor parallelism
+    (:func:`gqa_tp`) this rank attends with its block of the heads, the
+    partial ``wo`` products are summed over ``model``, and the cache holds
+    this rank's KV heads."""
+    if gqa_tp(cfg, pctx):
+        q, k, v = _gqa_tp_qkv(p, x, cfg, positions, pctx)
+        first = _model_block(_padded_heads(cfg), pctx).start
+    else:
+        if tp_active(pctx):
+            p = _gathered_over_model(p, cfg, pctx, tuple(p))
+        q, k, v = gqa_qkv(p, x, cfg, positions)
+        if _mha_ize(cfg, 1):
+            k, v = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2])
+        first = 0
     out = flash_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk)
-    out = _head_mask(cfg, out)
+    out = _head_mask(cfg, out, first)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if gqa_tp(cfg, pctx):
+        out = sum_over_model(out, pctx)
+    elif tp_active(pctx):
+        k, v = _cache_block(k, pctx), _cache_block(v, pctx)
     return out, {"k": k, "v": v}
 
 
@@ -327,9 +465,18 @@ def init_mla(gen, cfg: ArchConfig, d: int, device) -> dict:
     }
 
 
-def _mla_q(p, x, cfg, positions):
+def mla_tp(cfg: ArchConfig, pctx) -> bool:
+    """Whether MLA's expanded form runs split over ``model``: its
+    ``param_spec`` shards ``wq_b``/``wkv_b``/``wo`` over the heads iff they
+    divide."""
+    return tp_active(pctx) and cfg.n_heads % pctx.tp_size == 0
+
+
+def _mla_q(p, x, cfg, positions, pctx=None):
     m = cfg.mla
     q_lat = apply_norm(p["q_norm"], x @ p["wq_a"], cfg)
+    if mla_tp(cfg, pctx):
+        q_lat = copy_to_model(q_lat, pctx)
     q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
@@ -348,34 +495,55 @@ def _mla_latent(p, x, cfg, positions):
 
 
 def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
-                  positions) -> tuple[torch.Tensor, dict]:
+                  positions, pctx=None) -> tuple[torch.Tensor, dict]:
     """Expanded-form MLA for train and prefill: keys and values expanded
     from the latent per head (k_rope shared by every head), causal
     ``flash_attention`` at dk = nope + rope, dv = v. The cache it returns
     stays compressed: ``{"c_kv": (B, S, kv_lora), "k_rope": (B, S,
-    rope)}``."""
+    rope)}``. Under tensor parallelism (:func:`mla_tp`) the latent and the
+    rope key, computed replicated, enter this rank's heads through a copy
+    to ``model``, the partial ``wo`` products are summed over it, and the
+    cache is cut over ``model`` as ``cache_specs`` lays it out."""
     m = cfg.mla
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    tp = mla_tp(cfg, pctx)
+    if tp_active(pctx) and not tp:
+        p = _gathered_over_model(p, cfg, pctx, tuple(p))
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, pctx)
     c_kv, k_rope = _mla_latent(p, x, cfg, positions)
-    kv = torch.einsum("bsr,rhk->bshk", c_kv, p["wkv_b"])
+    c_in, kr_in = ((copy_to_model(c_kv, pctx), copy_to_model(k_rope, pctx))
+                   if tp else (c_kv, k_rope))
+    kv = torch.einsum("bsr,rhk->bshk", c_in, p["wkv_b"])
     k_nope = kv[..., :m.qk_nope_head_dim]
     v = kv[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(k_nope.shape[:3]
-                                         + (m.qk_rope_head_dim,))], dim=-1)
+    k = torch.cat([k_nope, kr_in.expand(k_nope.shape[:3]
+                                        + (m.qk_rope_head_dim,))], dim=-1)
     out = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
+    if tp:
+        out = sum_over_model(out, pctx)
+    cache = {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
+    if tp_active(pctx):
+        cache = {n: (t[..., _model_block(t.shape[-1], pctx)]
+                     if t.shape[-1] % pctx.tp_size == 0 else t)
+                 for n, t in cache.items()}
+    return out, cache
 
 
 def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
-               pos) -> tuple[torch.Tensor, dict]:
+               pos, pctx=None) -> tuple[torch.Tensor, dict]:
     """Absorbed-form decode of x (B, 1, d): the new latent and rope key are
     written IN PLACE at ``pos`` (scalar or per-row; a write at ``pos >= S``
     is dropped, as in ``gqa_decode``); W_UK is folded into the query and
     W_UV applied after the attention, all in float32 in the reference's
-    order, and ``wo`` in the model dtype."""
+    order, and ``wo`` in the model dtype. Not under tensor parallelism:
+    the latent split over ``model`` waits for ROADMAP.md queue 1 item
+    6b."""
+    if tp_active(pctx):
+        raise NotImplementedError(
+            "MLA's absorbed decode with the latent over a 'model' axis is not "
+            "ported to repro_torch yet (ROADMAP.md queue 1 item 6b)")
     m = cfg.mla
     B = x.shape[0]
     pos_b = _pos_vec(pos, B, x.device)

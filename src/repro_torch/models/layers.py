@@ -133,12 +133,38 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x ** 3)))))
 
 
-def apply_mlp(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def tp_active(pctx) -> bool:
+    """Whether ``pctx`` runs tensor parallelism: a sharded context (see
+    :class:`repro_torch.parallel.ctx.ParallelCtx`) with a ``model`` axis of
+    more than one rank."""
+    return pctx is not None and pctx.sharded and pctx.tp_size > 1
+
+
+def mlp_tp(ff: int, pctx) -> bool:
+    """Whether an MLP of hidden width ``ff`` runs split over ``model``: its
+    ``param_spec`` shards ``w_up``'s columns there iff ``ff`` divides."""
+    return tp_active(pctx) and ff % pctx.tp_size == 0
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg: ArchConfig, pctx=None,
+              ff: int | None = None) -> torch.Tensor:
+    """The MLP of ``x``. Under tensor parallelism (``mlp_tp(ff, pctx)``,
+    ``ff`` the global hidden width) ``p`` holds this rank's columns of
+    ``w_gate``/``w_up``/``b_up`` and rows of ``w_out``: ``x`` enters
+    through a copy to ``model`` and the partial ``w_out`` products are
+    summed over it before ``b_out``."""
+    from repro_torch.parallel.tensor_parallel import (copy_to_model,
+                                                      sum_over_model)
+    tp = mlp_tp(cfg.d_ff if ff is None else ff, pctx)
+    if tp:
+        x = copy_to_model(x, pctx)
     up = x @ p["w_up"]
     if cfg.mlp_bias:
         up = up + p["b_up"]
     h = _act(cfg, x @ p["w_gate"]) * up if cfg.mlp_gated else _act(cfg, up)
     out = h @ p["w_out"]
+    if tp:
+        out = sum_over_model(out, pctx)
     if cfg.mlp_bias:
         out = out + p["b_out"]
     return out

@@ -18,13 +18,18 @@ Two-level capacity buffers keep every shape static, as in the reference:
    ``torch.bmm`` as the reference's einsums are plain XLA dots;
 5. ``all_to_all`` back, combine with the routing weights.
 
-Tokens that overflow a capacity buffer are dropped. Every rank keeps the
-whole expert stack (replicated, as the port's data parallelism keeps every
-leaf) and computes with its own ``E / ep`` slice: its gradient of the other
-experts is zero, so the mean over the world that the gradient sync takes is
-the gradient of the global mean loss, as the reference's sharded step gives.
-Tensor parallelism over a ``model`` axis waits for the port's sharding
-(ROADMAP.md queue 1 item 6).
+Tokens that overflow a capacity buffer are dropped. On a mesh of batch
+axes only, every rank keeps the whole expert stack (replicated, as the
+port's data parallelism keeps every leaf) and computes with its own ``E /
+ep`` slice: its gradient of the other experts is zero, so the mean over the
+world that the gradient sync takes is the gradient of the global mean loss,
+as the reference's sharded step gives. On a sharded mesh (a ``model``
+axis) the experts are stored as ``param_specs`` lays them out: dim 0 over
+``data``, so a rank holds its ``E / ep`` experts and their gradient sums
+its pod's tokens through the all_to_all's adjoint, and the expert hidden
+dim over ``model`` (tensor parallelism: the buffers enter the local
+experts through a copy to ``model``, and the partial ``w_out`` products
+are summed over it, the reference's ``psum`` at ``moe.py:192-194``).
 
 The body runs on R ranks' tokens at once (leading axis R): one on a real
 rank, all ``ep`` ranks of a data group in :func:`emulate_ep`, where the
@@ -37,10 +42,12 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.layers import _act, dense_init, dtype_of
+from repro_torch.core.collectives import all_to_all
+from repro_torch.models.layers import (_act, dense_init, dtype_of, mlp_tp,
+                                       tp_active)
+from repro_torch.parallel.tensor_parallel import copy_to_model, sum_over_model
 
 #: when a list, each MoE layer call appends ``(routed, kept)``: the
 #: (token, choice) slots its tokens routed (an int) and the slots its
@@ -71,22 +78,6 @@ def init_moe(gen, cfg: ArchConfig, d: int, device) -> dict:
 
 
 # ------------------------------------------------------------ all_to_all
-def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """``x``'s dim-0 blocks exchanged over ``group`` with equal splits (the
-    reference's ``lax.all_to_all(x, axis, 0, 0, tiled=False)``): block i
-    goes to the group's i-th rank, and block i of the result came from it.
-    Moved as bytes (exact for every dtype); gloo takes a CUDA tensor
-    through host memory, staged here explicitly. Not differentiable:
-    :class:`AllToAll` carries it through autograd."""
-    src = x.contiguous()
-    stage = src.is_cuda and dist.get_backend(group) == "gloo"
-    wire = (src.cpu() if stage else src).view(torch.uint8)
-    out = torch.empty_like(wire)
-    dist.all_to_all_single(out, wire, group=group)
-    out = out.view(x.dtype)
-    return out.to(x.device) if stage else out
-
-
 class AllToAll(torch.autograd.Function):
     """``apply(x, fn)``: ``fn(x)`` for a block transpose ``fn`` (an
     :func:`all_to_all`, or its emulation on stacked buffers). A transpose is
@@ -209,11 +200,14 @@ def route(x: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig):
     return w, ids, logits
 
 
-def _moe_body(x, router_w, w_gate, w_up, w_out, cfg: ArchConfig, fn=None):
+def _moe_body(x, router_w, w_gate, w_up, w_out, cfg: ArchConfig, fn=None,
+              tp_pctx=None):
     """x: (R, T, d), the tokens of R ranks of one data group (R = 1 on a
     real rank); ``w_*``: (R * E_l, ...), each rank's E_l local experts in
     rank order; ``fn``: the block transpose of (R, ep, cap, ...) buffers
-    over the group, or None when every expert is local (ep = 1).
+    over the group, or None when every expert is local (ep = 1);
+    ``tp_pctx``: the context whose ``model`` axis splits the experts'
+    hidden dim, or None.
 
     The reference's steps with the same capacities and drop order, laid
     out for the card: each pack writes its rows to distinct slots (the
@@ -257,9 +251,12 @@ def _moe_body(x, router_w, w_gate, w_up, w_out, cfg: ArchConfig, fn=None):
     slot_e = torch.where(valid_e, slot_e, E_l * cap_e)
     if drop_log is not None:
         drop_log.append((R * T * k, valid_e.sum()))
-    ebuf = _scatter(slot_e, E_l * cap_e, recv)
-    y_e = _expert_ffn(w_gate, w_up, w_out,
-                      ebuf.reshape(R * E_l, cap_e, d), cfg)
+    ebuf = _scatter(slot_e, E_l * cap_e, recv).reshape(R * E_l, cap_e, d)
+    if tp_pctx is not None:
+        ebuf = copy_to_model(ebuf, tp_pctx)
+    y_e = _expert_ffn(w_gate, w_up, w_out, ebuf, cfg)
+    if tp_pctx is not None:
+        y_e = sum_over_model(y_e, tp_pctx)
     # un-pack into the wire layout: a slot reads its expert's output, or 0
     back = _take(y_e.reshape(R, E_l * cap_e, d),
                  torch.where(valid_e, slot_e, 0))
@@ -282,25 +279,32 @@ def _moe_body(x, router_w, w_gate, w_up, w_out, cfg: ArchConfig, fn=None):
     return y.to(x.dtype)
 
 
-def _shared(p: dict, x, cfg: ArchConfig):
-    sh = p["shared"]
-    return (_act(cfg, x @ sh["w_gate"]) * (x @ sh["w_up"])) @ sh["w_out"]
+def _shared(p: dict, x, cfg: ArchConfig, pctx=None):
+    """The shared experts: a gated MLP, split over ``model`` as the dense
+    MLP is when its width divides."""
+    sh, m = p["shared"], cfg.moe
+    tp = mlp_tp(m.d_shared * m.n_shared_experts, pctx)
+    if tp:
+        x = copy_to_model(x, pctx)
+    y = (_act(cfg, x @ sh["w_gate"]) * (x @ sh["w_up"])) @ sh["w_out"]
+    return sum_over_model(y, pctx) if tp else y
 
 
 def ep_size(pctx, cfg: ArchConfig) -> int:
     """Ranks the experts are spread over: the ``data`` axis of ``pctx``'s
     mesh when it is larger than 1 and divides the expert count, else 1 (the
-    local path). A ``model`` axis larger than 1 raises: TP over ``model``
-    waits for ROADMAP.md queue 1 item 6."""
+    local path). A ``model`` axis splits the experts' hidden dim on top
+    (:func:`expert_tp`)."""
     if pctx is None:
         return 1
-    mesh = pctx.mesh
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "MoE tensor parallelism over a 'model' axis is not ported to "
-            "repro_torch yet (ROADMAP.md queue 1 item 6)")
-    n = mesh.shape.get("data", 1)
+    n = pctx.mesh.shape.get("data", 1)
     return n if n > 1 and cfg.moe.n_experts % n == 0 else 1
+
+
+def expert_tp(pctx, cfg: ArchConfig) -> bool:
+    """Whether the experts' hidden dim is split over ``model``: their
+    ``param_spec`` shards it there iff it divides."""
+    return tp_active(pctx) and cfg.moe.d_expert % pctx.tp_size == 0
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -314,28 +318,41 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ArchConfig,
     rank's share, and every rank of the data group must pass the same
     (B, S): both capacities derive from it, and the exchange needs equal
     buffers (the port's data-parallel batch split gives that). Otherwise
-    the local path, all experts here."""
+    the local path, all experts here. ``p``'s expert stacks hold all E
+    experts (this rank's slice is taken here) or, on a sharded mesh, this
+    rank's E/ep of them; on a sharded mesh the router and the shared
+    experts are whole over ``data`` (gathered at the layer's entry) and
+    the experts' hidden dim may be split over ``model``
+    (:func:`expert_tp`)."""
     m = cfg.moe
     B, S, d = x.shape
     xt = x.reshape(1, B * S, d)
     ep = ep_size(pctx, cfg)
+    tp_pctx = pctx if expert_tp(pctx, cfg) else None
+    ws = [p["w_gate"], p["w_up"], p["w_out"]]
+    stored = ws[0].shape[0]
+    if stored != m.n_experts and (ep == 1 or stored != m.n_experts // ep):
+        raise ValueError(f"the expert stack holds {stored} of "
+                         f"{m.n_experts} experts, not what EP over "
+                         f"{ep} data ranks uses")
     if ep > 1:
         mesh = pctx.mesh
         E_l = m.n_experts // ep
-        sl = slice(mesh.coords["data"] * E_l, (mesh.coords["data"] + 1) * E_l)
+        if stored == m.n_experts:
+            sl = slice(mesh.coords["data"] * E_l,
+                       (mesh.coords["data"] + 1) * E_l)
+            ws = [w[sl] for w in ws]
         group = mesh.group("data")
 
         def fn(t):
             return all_to_all(t[0], group)[None]
 
-        y = _moe_body(xt, p["router"], p["w_gate"][sl], p["w_up"][sl],
-                      p["w_out"][sl], cfg, fn)
+        y = _moe_body(xt, p["router"], *ws, cfg, fn, tp_pctx)
     else:
-        y = _moe_body(xt, p["router"], p["w_gate"], p["w_up"], p["w_out"],
-                      cfg)
+        y = _moe_body(xt, p["router"], *ws, cfg, None, tp_pctx)
     y = y.reshape(B, S, d)
     if m.n_shared_experts:
-        y = y + _shared(p, x, cfg)
+        y = y + _shared(p, x, cfg, pctx)
     return y
 
 

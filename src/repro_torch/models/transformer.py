@@ -29,6 +29,9 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        dtype_of, embed_tokens, init_embedding,
                                        init_mlp, init_norm, lm_loss, logits)
+from repro_torch.parallel.sharding import (Sharding, is_spec, layer_specs,
+                                           top_specs)
+from repro_torch.parallel.tensor_parallel import gather_leaf
 
 
 def _unported(cfg: ArchConfig) -> str | None:
@@ -49,6 +52,70 @@ def _refuse_hybrid(cfg: ArchConfig) -> None:
     if _is_hybrid(cfg):
         raise ValueError(f"{cfg.name} is a hybrid config: build it with "
                          "HybridLM (or build_model)")
+
+
+def _refuse_sharded(cfg: ArchConfig, pctx) -> None:
+    """Mamba-2 and hybrid models run on whole parameters only: the
+    reference shards ``wB``/``wC`` over ``d_state`` under a ``model`` axis,
+    so the SSD contraction needs its own sum (ROADMAP.md queue 1 item 6b)."""
+    if pctx is not None and pctx.sharded:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba-2/hybrid models on a sharded mesh (a "
+            f"'{pctx.tp_axis}' axis) are not ported to repro_torch yet "
+            "(ROADMAP.md queue 1 item 6b)")
+
+
+# ---------------------------------------------------------------- sharding
+def _is_expert_stack(names: tuple[str, ...], leaf) -> bool:
+    return (len(names) == 2 and names[0] == "ffn" and leaf.dim() == 3
+            and names[1] in ("w_gate", "w_up", "w_out"))
+
+
+def _unfsdp(p: dict, cfg: ArchConfig, pctx, kind: str) -> dict:
+    """ZeRO-3 for one layer (the reference's ``_unfsdp`` with
+    ``gather_weights``): its leaves sharded over ``data`` gathered whole
+    over ``data`` at the layer's entry (a reduce-scatter of their gradient
+    in backward), ``model`` blocks kept. Expert stacks stay in their EP
+    layout, which the MoE layer consumes as it is."""
+    if pctx is None or not pctx.sharded:
+        return p
+    specs = tree_util.leaves(layer_specs(cfg, kind, pctx), is_leaf=is_spec)
+    out = []
+    for (name, leaf), spec in zip(tree_util.named_leaves(p), specs,
+                                  strict=True):
+        if not _is_expert_stack(tuple(name.split(".")), leaf):
+            leaf = gather_leaf(leaf, Sharding(pctx.mesh, spec), pctx,
+                               axes=("data",))
+        out.append(leaf)
+    return tree_util.unflatten(p, out)
+
+
+def _hint(x, cfg: ArchConfig, pctx):
+    """The reference's ``_hint`` as a check: under a sharded context the
+    residual stream is this rank's rows at the full width (the ``model``
+    ranks of a batch row hold it whole and identical)."""
+    if pctx is not None and pctx.sharded and x.shape[-1] != cfg.d_model:
+        raise ValueError(f"residual stream {tuple(x.shape)} is not this "
+                         f"rank's rows at d_model {cfg.d_model}")
+    return x
+
+
+def _gathered_top(params: dict, cfg: ArchConfig, pctx) -> tuple[dict, dict]:
+    """The embedding (and the MTP projection) gathered whole over every
+    axis its spec names at use (the vocab-parallel loss is ROADMAP.md queue
+    1 item 6b): ``(embed, mtp)``."""
+    embed, mtp = params["embed"], params.get("mtp")
+    if pctx is None or not pctx.sharded:
+        return embed, mtp
+    specs = top_specs(cfg, pctx)
+
+    def full(t, spec):
+        return gather_leaf(t, Sharding(pctx.mesh, spec), pctx)
+
+    embed = {k: full(v, specs["embed"][k]) for k, v in embed.items()}
+    if mtp is not None:
+        mtp = {**mtp, "proj": full(mtp["proj"], specs["mtp"]["proj"])}
+    return embed, mtp
 
 
 # ------------------------------------------------------------------ blocks
@@ -72,7 +139,7 @@ def init_block(gen, cfg: ArchConfig, kind: str, device) -> dict:
 def _ffn(p, h, cfg, kind, pctx):
     if kind == "moe":
         return moe_lib.apply_moe(p["ffn"], h, cfg, pctx)
-    return apply_mlp(p["ffn"], h, cfg)
+    return apply_mlp(p["ffn"], h, cfg, pctx)
 
 
 def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
@@ -80,32 +147,42 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
     """Full-sequence causal block. Returns (x, cache); for ``kind="ssm"``
     the cache is the Mamba-2 state ``{"conv", "ssm"}``, for an MLA config
     ``{"c_kv", "k_rope"}``. ``pctx`` reaches the MoE layer (expert
-    parallelism over its mesh's ``data`` axis)."""
+    parallelism over its mesh's ``data`` axis) and, on a sharded mesh,
+    every layer: ``p`` holds this rank's blocks (``param_specs``), the
+    layer's ``data`` shards are gathered at its entry and attention and
+    the FFN run split over ``model``."""
+    p = _unfsdp(p, cfg, pctx, kind)
+    x = _hint(x, cfg, pctx)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
         y, state = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
         return x + y, state
     if cfg.mla is not None:
-        y, cache = attn.mla_attention(p["attn"], h, cfg, positions=positions)
+        y, cache = attn.mla_attention(p["attn"], h, cfg, positions=positions,
+                                      pctx=pctx)
     else:
-        y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions)
+        y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions,
+                                      pctx=pctx)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, pctx), cache
 
 
-def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos):
+def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos,
+                 pctx=None):
+    p = _unfsdp(p, cfg, pctx, kind)
+    x = _hint(x, cfg, pctx)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
         y, state = ssm_lib.mamba2_decode(p["ssm"], h, cfg, cache)
         return x + y, state
     if cfg.mla is not None:
-        y, cache = attn.mla_decode(p["attn"], h, cfg, cache, pos)
+        y, cache = attn.mla_decode(p["attn"], h, cfg, cache, pos, pctx)
     else:
-        y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos)
+        y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos, pctx)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
-    return x + _ffn(p, h2, cfg, kind, None), cache
+    return x + _ffn(p, h2, cfg, kind, pctx), cache
 
 
 # ------------------------------------------------------------ stacked layers
@@ -152,7 +229,7 @@ def stack_forward(stack, x, cfg, kind, *, positions, pctx=None):
     return x, _stack_trees(caches)
 
 
-def stack_decode(stack, x, cfg, kind, *, caches, pos):
+def stack_decode(stack, x, cfg, kind, *, caches, pos, pctx=None):
     """Run the stacked blocks layer by layer over ``caches`` (leaves with a
     leading layer axis), updated IN PLACE (the reference's scan returns new
     caches instead): attention layers write their new KV into
@@ -162,7 +239,8 @@ def stack_decode(stack, x, cfg, kind, *, caches, pos):
     for i in range(n):
         layer_p = tree_util.tree_map(lambda t: t[i], stack)
         cache = tree_util.tree_map(lambda t: t[i], caches)
-        x, new = block_decode(layer_p, x, cfg, kind, pos=pos, cache=cache)
+        x, new = block_decode(layer_p, x, cfg, kind, pos=pos, cache=cache,
+                              pctx=pctx)
         if kind == "ssm":
             for dst, src in zip(tree_util.leaves(cache),
                                 tree_util.leaves(new)):
@@ -227,13 +305,13 @@ class LM:
         return "moe" if self.cfg.moe is not None else "dense"
 
     # -------- shared trunk
-    def _inputs(self, params: dict, batch: dict):
+    def _inputs(self, embed: dict, batch: dict):
         cfg = self.cfg
-        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = embed_tokens(embed, batch["tokens"], cfg)
         B, S = x.shape[0], x.shape[1]
         positions = torch.arange(S, device=x.device).expand(B, S)
         if cfg.pos_embedding == "learned":
-            x = x + params["embed"]["positions"][:S]
+            x = x + embed["positions"][:S]
         return x, positions
 
     def _trunk(self, params: dict, x, positions, pctx=None):
@@ -252,11 +330,15 @@ class LM:
         ``labels`` (B, S) int). ``pctx`` (a :class:`ParallelCtx`) reaches
         the MoE layers, which run expert parallelism over its mesh's
         ``data`` axis; the port's data parallelism syncs gradients outside
-        the model (:mod:`repro_torch.parallel.grad_sync`)."""
-        x, positions = self._inputs(params, batch)
+        the model (:mod:`repro_torch.parallel.grad_sync`). On a sharded
+        mesh ``params`` are this rank's blocks and ``batch`` its rows; the
+        loss is the mean over those rows, the same on its ``model``
+        ranks."""
+        embed, _ = _gathered_top(params, self.cfg, pctx)
+        x, positions = self._inputs(embed, batch)
         h, _ = self._trunk(params, x, positions, pctx)
         labels = batch["labels"]
-        total = lm_loss(params["embed"], h[:, :-1], labels[:, 1:], self.cfg)
+        total = lm_loss(embed, h[:, :-1], labels[:, 1:], self.cfg)
         if self.cfg.mtp_depth:
             total = total + 0.3 * self._mtp_loss(params, h, batch, pctx)
         return total
@@ -267,8 +349,8 @@ class LM:
         t+1, through one block and the shared head. The block is not
         recomputed in backward, as in the reference."""
         cfg = self.cfg
-        mtp = params["mtp"]
-        e_next = embed_tokens(params["embed"], batch["tokens"][:, 1:], cfg)
+        embed, mtp = _gathered_top(params, cfg, pctx)
+        e_next = embed_tokens(embed, batch["tokens"][:, 1:], cfg)
         hh = apply_norm(mtp["ln_h"], h[:, :-1], cfg)
         ee = apply_norm(mtp["ln_e"], e_next, cfg)
         z = torch.cat([hh, ee], dim=-1) @ mtp["proj"]
@@ -276,36 +358,41 @@ class LM:
         positions = torch.arange(S, device=z.device).expand(B, S)
         z, _ = block_forward(mtp["block"], z, cfg, self._mtp_kind,
                              positions=positions, pctx=pctx)
-        return lm_loss(params["embed"], z[:, :-1], batch["labels"][:, 2:],
-                       cfg)
+        return lm_loss(embed, z[:, :-1], batch["labels"][:, 2:], cfg)
 
     # -------- serving
     def prefill(self, params: dict, batch: dict, pctx=None):
         """Logits of the last position (B, 1, V) float32 and the per-layer
         KV caches ``{"dense": {"k", "v"}, "moe": {"k", "v"}}`` each (L, B,
         S, K, hd), a key for each non-empty stack (MLA: ``{"c_kv",
-        "k_rope"}`` as :meth:`init_cache` shapes them)."""
-        x, positions = self._inputs(params, batch)
+        "k_rope"}`` as :meth:`init_cache` shapes them). On a sharded mesh
+        the rows are this rank's and the caches its blocks, laid out as
+        ``cache_specs`` says."""
+        embed, _ = _gathered_top(params, self.cfg, pctx)
+        x, positions = self._inputs(embed, batch)
         h, caches = self._trunk(params, x, positions, pctx)
-        return logits(params["embed"], h[:, -1:, :], self.cfg), caches
+        return logits(embed, h[:, -1:, :], self.cfg), caches
 
-    def decode_step(self, params: dict, caches: dict, batch: dict):
+    def decode_step(self, params: dict, caches: dict, batch: dict,
+                    pctx=None):
         """One token per row. ``batch``: ``token`` (B,) and ``pos`` (scalar or
         (B,)). Returns (logits (B,1,V) float32, caches), the caches updated
-        in place."""
+        in place; on a sharded mesh, this rank's rows and cache blocks, as
+        :meth:`prefill` leaves them."""
         cfg = self.cfg
+        embed, _ = _gathered_top(params, cfg, pctx)
         tok = batch["token"][:, None]
         pos = batch["pos"]
-        x = embed_tokens(params["embed"], tok, cfg)
+        x = embed_tokens(embed, tok, cfg)
         if cfg.pos_embedding == "learned":
             pos_b = attn._pos_vec(pos, x.shape[0], x.device)
-            x = x + params["embed"]["positions"][pos_b][:, None, :]
+            x = x + embed["positions"][pos_b][:, None, :]
         for key, kind, _ in self.stacks:
             if params[f"{key}_stack"] is not None:
                 x, _ = stack_decode(params[f"{key}_stack"], x, cfg, kind,
-                                    caches=caches[key], pos=pos)
+                                    caches=caches[key], pos=pos, pctx=pctx)
         h = apply_norm(params["final_norm"], x, cfg)
-        return logits(params["embed"], h, cfg), caches
+        return logits(embed, h, cfg), caches
 
     def init_cache(self, batch_size: int, seq_len: int, device=None) -> dict:
         """Zero KV caches shaped for a ``seq_len`` window: ``{"dense": {"k",
@@ -373,7 +460,9 @@ class SSMLM:
 
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
         """Mean next-token cross entropy of ``batch`` (``tokens``,
-        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`."""
+        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`, but not
+        sharded (ROADMAP.md queue 1 item 6b)."""
+        _refuse_sharded(self.cfg, pctx)
         h, _ = self._trunk(params, batch["tokens"])
         return lm_loss(params["embed"], h[:, :-1], batch["labels"][:, 1:],
                        self.cfg)
@@ -382,6 +471,7 @@ class SSMLM:
         """Logits of the last position (B, 1, V) float32 and the states
         ``{"conv": (sx, sB, sC) each (L, B, W-1, C), "ssm": (L, B, h, p,
         n) float32}`` to continue from."""
+        _refuse_sharded(self.cfg, pctx)
         h, states = self._trunk(params, batch["tokens"])
         return logits(params["embed"], h[:, -1:, :], self.cfg), states
 
@@ -503,7 +593,9 @@ class HybridLM:
 
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
         """Mean next-token cross entropy of ``batch`` (``tokens``,
-        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`."""
+        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`, but not
+        sharded (ROADMAP.md queue 1 item 6b)."""
+        _refuse_sharded(self.cfg, pctx)
         h, _, _ = self._trunk(params, batch["tokens"])
         return lm_loss(params["embed"], h[:, :-1], batch["labels"][:, 1:],
                        self.cfg)
@@ -513,6 +605,7 @@ class HybridLM:
         ``{"ssm": {"conv": (sx, sB, sC) each (G, gs, B, W-1, C), "ssm":
         (G, gs, B, h, p, n) float32}, "attn": {"k", "v"} each (G, B, S, K,
         hd)}``."""
+        _refuse_sharded(self.cfg, pctx)
         h, ssm_states, attn_caches = self._trunk(params, batch["tokens"])
         return logits(params["embed"], h[:, -1:, :], self.cfg), {
             "ssm": _stack_trees(ssm_states),

@@ -17,6 +17,13 @@ Counterpart of ``repro.parallel.grad_sync`` (``flatten_to_buckets``,
                      does (:func:`plan_buckets` lists its choices); host
                      code on byte counts and axis sizes only
 
+On a sharded mesh (:func:`sync_sharded_gradients`) the leaves replicated
+over ``data`` sync over ``(pod, data)`` as above, and the leaves sharded
+over ``data`` (ZeRO-3 weights, expert stacks) over ``pod`` only: their
+gather's backward (or the all_to_all's adjoint) has already summed them
+over ``data``, the first two phases of the section 4.7 schedule without
+the final all-gather.
+
 Gradients are packed into float32 buckets of ``CommPolicy.bucket_bytes``
 bytes in the reference's leaf order (sorted dict keys), so bucket
 boundaries, and with them the compressed sync's per-shard scales, are the
@@ -43,6 +50,8 @@ from repro_torch.core.collectives import (all_gather_stack, flat_allreduce,
 from repro_torch.core.comm import CommPolicy
 from repro_torch.core.planner import GRAD_SYNC_STRATEGIES as STRATEGIES
 from repro_torch.kernels.allreduce_combine.ops import combine_parts
+from repro_torch.parallel.sharding import Sharding, spec_axes
+from repro_torch.parallel.tensor_parallel import sum_across
 
 #: ``combine`` launches one bucket takes on a two-axis mesh, by strategy
 _COMBINES = {"flat": 0, "hierarchical": 2, "compressed": 3}
@@ -171,6 +180,60 @@ def sync_gradients(grads, mesh, *, strategy: str = "hierarchical",
             raise ValueError(strat)
         out.append(r / mean_over)
     return unflatten_from_buckets(out, spec)
+
+
+def _split_by_data(grads, shardings) -> tuple[list[bool], list, list]:
+    """(whether each leaf is sharded over ``data``, the replicated leaves,
+    the sharded ones), in leaf order."""
+    shards = tree_util.leaves(shardings,
+                              is_leaf=lambda x: isinstance(x, Sharding))
+    over = [any("data" in spec_axes(e) for e in s.spec) for s in shards]
+    leaves = tree_util.leaves(grads)
+    if len(leaves) != len(over):
+        raise ValueError(f"{len(leaves)} gradient leaves, {len(over)} "
+                         "shardings")
+    return (over, [g for g, o in zip(leaves, over) if not o],
+            [g for g, o in zip(leaves, over) if o])
+
+
+def plan_sharded_sync(grads, shardings, mesh, policy: CommPolicy | None = None,
+                      allow_lossy: bool = False) -> tuple[list[str], int]:
+    """What :func:`sync_sharded_gradients` runs with ``strategy="auto"``:
+    the plan of the leaves replicated over ``data`` (:func:`plan_buckets`
+    over ``(pod, data)``) and the number of buckets of the leaves sharded
+    over ``data`` that cross ``pod`` (one ``combine`` each). ``grads``: this
+    rank's blocks (shapes only; meta tensors do)."""
+    policy = policy or CommPolicy()
+    _, rep, zero = _split_by_data(grads, shardings)
+    plan = plan_buckets(rep, mesh, policy, allow_lossy)
+    pods = int(mesh.shape.get("pod", 1))
+    n_pod = (len(bucket_sizes(zero, policy.bucket_bytes(pods)))
+             if pods > 1 else 0)
+    return plan, n_pod
+
+
+def sync_sharded_gradients(grads, shardings, mesh, *,
+                           strategy: str = "hierarchical",
+                           policy: CommPolicy | None = None,
+                           mean_over: int = 1, allow_lossy: bool = False):
+    """The gradient sync of a sharded train step: ``grads`` this rank's
+    blocks, laid out by ``shardings`` (a tree of ``Sharding``). Leaves
+    replicated over ``data`` go through :func:`sync_gradients` over
+    ``(pod, data)``; leaves sharded over ``data`` are summed over ``pod``
+    only, in buckets, each by ``combine`` in rank order. Every leaf is then
+    divided by ``mean_over``."""
+    policy = policy or CommPolicy()
+    over, rep, zero = _split_by_data(grads, shardings)
+    rep = sync_gradients(rep, mesh, strategy=strategy, policy=policy,
+                         mean_over=mean_over, allow_lossy=allow_lossy)
+    pods = int(mesh.shape.get("pod", 1))
+    buckets, spec = flatten_to_buckets(zero, policy.bucket_bytes(pods))
+    if pods > 1:
+        buckets = [sum_across(b, mesh.group("pod")) for b in buckets]
+    zero = unflatten_from_buckets([b / mean_over for b in buckets], spec)
+    it_rep, it_zero = iter(rep), iter(zero)
+    return tree_util.unflatten(grads, [next(it_zero) if o else next(it_rep)
+                                       for o in over])
 
 
 def _compressed_inter(shard: torch.Tensor, inter) -> torch.Tensor:

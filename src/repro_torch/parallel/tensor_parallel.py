@@ -1,0 +1,148 @@
+"""The collectives a sharded model runs, as autograd Functions.
+
+The port has no partitioner, so the collectives that GSPMD derives from the
+reference's specs are written out here, in the style of
+:class:`repro_torch.models.moe.AllToAll`:
+
+* :class:`CopyToModel` — identity forward, sum over ``model`` backward: the
+  entry of a tensor-parallel region (a replicated activation meets
+  column-sharded weights, so each ``model`` rank holds part of its
+  gradient);
+* :class:`SumOverModel` — sum over ``model`` forward, identity backward: the
+  exit (row-sharded weights leave each rank a partial product);
+* :class:`GatherLeaf` — a weight's blocks gathered at use: all-gather
+  forward; backward a reduce-scatter (sum) over the batch axes, whose ranks
+  saw different rows, and this rank's own block over ``model``, whose
+  ranks computed the same thing.
+
+Every sum is an all-gather of the parts plus ``combine`` over them in rank
+order (:func:`repro_torch.kernels.allreduce_combine.ops.combine_parts`:
+the Hopper kernel on CUDA tensors, its plain version on the CPU), or the
+reduce-scatter of :func:`repro_torch.core.collectives.reduce_scatter_combine`;
+so every rank of a ``model`` group holds the same bits, and what follows a
+sum (norms, MoE routes, the next layer) stays identical across ``model``
+replicas.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.collectives import (all_gather_stack,
+                                          reduce_scatter_combine)
+from repro_torch.kernels.allreduce_combine.ops import combine_parts
+
+
+def sum_across(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every group rank's ``x``, in group-rank order, by
+    ``combine``: the same bits on every rank."""
+    parts = all_gather_stack(x, group)
+    return combine_parts(parts.reshape(parts.shape[0], -1),
+                         op="sum").reshape(x.shape)
+
+
+class CopyToModel(torch.autograd.Function):
+    """``apply(x, group)``: ``x`` forward; the gradient summed over
+    ``group`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_across(g.contiguous(), ctx.group), None
+
+
+class SumOverModel(torch.autograd.Function):
+    """``apply(x, group)``: ``x`` summed over ``group`` forward; the
+    gradient as it is backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return sum_across(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, pctx) -> torch.Tensor:
+    return CopyToModel.apply(x, pctx.mesh.group(pctx.tp_axis))
+
+
+def sum_over_model(x: torch.Tensor, pctx) -> torch.Tensor:
+    return SumOverModel.apply(x, pctx.mesh.group(pctx.tp_axis))
+
+
+# ------------------------------------------------------------ weight blocks
+def _check_order(sharding, axes) -> None:
+    names = sharding.mesh.axis_names
+    if list(axes) != sorted(axes, key=names.index):
+        raise NotImplementedError(
+            f"{sharding.spec}: a dim over axes {axes} out of the mesh's order "
+            f"{names}; the port gathers blocks in group-rank order")
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    parts = all_gather_stack(x, group)               # (k, *x.shape)
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+def gather_dims(local: torch.Tensor, sharding, dims) -> torch.Tensor:
+    """``local`` gathered over the axes of its spec's entries at ``dims``
+    (not differentiable)."""
+    from repro_torch.parallel.sharding import spec_axes
+    entries = sharding._entries(local.dim())
+    out = local
+    for d in dims:
+        axes = spec_axes(entries[d])
+        if axes:
+            _check_order(sharding, axes)
+            out = _gather_dim(out, d, sharding.mesh.group(axes))
+    return out
+
+
+class GatherLeaf(torch.autograd.Function):
+    """``apply(x, sharding, dims, reduce_axes)``: the block ``x`` gathered
+    along ``dims``; backward, for each of those dims, a reduce-scatter over
+    its group if its axes meet ``reduce_axes`` (the batch axes), else this
+    rank's own block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, sharding, dims, reduce_axes):
+        ctx.sharding, ctx.dims, ctx.reduce = sharding, dims, reduce_axes
+        return gather_dims(x, sharding, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.parallel.sharding import spec_axes
+        sh = ctx.sharding
+        entries = sh._entries(g.dim())
+        index = sh.block_index(sh.mesh.coords, g.dim())
+        for d in reversed(ctx.dims):
+            axes = spec_axes(entries[d])
+            if not axes:
+                continue
+            if set(axes) & set(ctx.reduce):
+                g = reduce_scatter_combine(g.movedim(d, 0).contiguous(),
+                                           sh.mesh.group(axes)).movedim(0, d)
+            else:
+                n = g.shape[d] // sh.parts(g.shape)[d]
+                g = g.narrow(d, index[d] * n, n)
+        return g.contiguous(), None, None, None
+
+
+def gather_leaf(x: torch.Tensor, sharding, pctx, axes=None) -> torch.Tensor:
+    """``x`` (this rank's block of a leaf laid out by ``sharding``) gathered
+    over ``axes`` (default: every axis its spec names); differentiable, see
+    :class:`GatherLeaf`. A leaf with nothing to gather is returned as it
+    is."""
+    from repro_torch.parallel.sharding import spec_axes
+    entries = sharding._entries(x.dim())
+    dims = tuple(d for d, e in enumerate(entries) if spec_axes(e)
+                 and (axes is None or set(spec_axes(e)) <= set(axes)))
+    if not dims:
+        return x
+    return GatherLeaf.apply(x, sharding, dims, tuple(pctx.dp_axes))

@@ -8,7 +8,7 @@ step replayable after a failure, bit for bit.
   recovery restores the latest checkpoint and replays. Invariant (tested):
   the final state equals the failure-free run's.
 * ``StragglerMonitor`` flags steps slower than a running-median deadline.
-* ``elastic_reshard`` waits for sharding (ROADMAP.md queue 1 item 6).
+* ``elastic_reshard`` restores a checkpoint onto a different mesh.
 """
 
 from __future__ import annotations
@@ -109,9 +109,8 @@ def run_with_recovery(state, step_fn: Callable, n_steps: int, *,
 
 
 def elastic_reshard(ckpt_dir: str, step: int, template, new_shardings):
-    """Restore a checkpoint onto a different mesh: waits for the port's
-    sharding (ROADMAP.md queue 1 item 6)."""
-    raise NotImplementedError(
-        "elastic_reshard needs the port's sharding rules, not ported yet "
-        "(ROADMAP.md queue 1 item 6); restore_checkpoint restores onto one "
-        "device")
+    """Restore a checkpoint onto a different mesh (elastic shrink/grow):
+    each rank takes its block of every leaf under ``new_shardings`` (a
+    tree of :class:`~repro_torch.parallel.sharding.Sharding`)."""
+    return restore_checkpoint(ckpt_dir, step, template,
+                              shardings=new_shardings)[0]

@@ -5,6 +5,12 @@ Counterpart of ``repro.train.loop``. PyTorch runs eagerly, so there is no
 ``torch.autograd.grad`` over detached copies of the parameter leaves; the
 step is functional like the reference's (new parameter and optimizer
 tensors, the inputs untouched).
+
+With a sharded :class:`~repro_torch.parallel.ctx.ParallelCtx` (a mesh with
+a ``model`` axis) the state is this rank's blocks (``param_specs``,
+``opt_state_specs``): the step runs the model on them, syncs as
+:func:`~repro_torch.parallel.grad_sync.sync_sharded_gradients` says and
+updates the blocks; the loss it reports is the mean over the batch ranks.
 """
 
 from __future__ import annotations
@@ -19,7 +25,11 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.device import resolve_device
 from repro_torch.parallel.ctx import make_parallel_ctx
-from repro_torch.parallel.grad_sync import sync_gradients
+from repro_torch.parallel.grad_sync import (sync_gradients,
+                                            sync_sharded_gradients)
+from repro_torch.parallel.sharding import (opt_state_specs, param_shardings,
+                                           param_specs, shard_tree)
+from repro_torch.parallel.tensor_parallel import sum_across
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
 
@@ -33,6 +43,14 @@ def _value_and_grad(model, params, batch, pctx):
     return loss.detach(), tree_util.unflatten(params, list(grads))
 
 
+def shardings_of(model, pctx):
+    """The tree of :class:`~repro_torch.parallel.sharding.Sharding` of
+    ``model``'s parameters on a sharded ``pctx``, else None."""
+    if pctx is None or not pctx.sharded:
+        return None
+    return param_shardings(model.init(None, device="meta"), model.cfg, pctx)
+
+
 def make_train_step(model, opt_cfg: AdamWConfig, pctx=None,
                     microbatches: int = 1,
                     accum_dtype: torch.dtype = torch.float32,
@@ -44,7 +62,10 @@ def make_train_step(model, opt_cfg: AdamWConfig, pctx=None,
     (grads -> grads) runs after accumulation, before the optimizer: the
     data-parallel gradient sync hook (see ``Trainer.make_step``). With
     ``donate`` the step writes the new parameters and moments into the
-    given ones (``adamw_update(donate=True)``) and returns them."""
+    given ones (``adamw_update(donate=True)``) and returns them. On a
+    sharded ``pctx`` the trees are this rank's blocks and ``batch`` its
+    rows; the reported loss is the mean of the batch ranks' losses."""
+    shardings = shardings_of(model, pctx)
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
@@ -71,7 +92,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, pctx=None,
                 grads = sync_fn(grads)
             new_params, new_opt, metrics = adamw_update(grads, opt_state,
                                                         params, opt_cfg,
-                                                        donate=donate)
+                                                        donate=donate,
+                                                        shardings=shardings)
+            if shardings is not None:
+                dp = pctx.mesh.group(pctx.dp_axes)
+                loss = sum_across(loss.reshape(1), dp)[0] / pctx.dp_size
         metrics["loss"] = loss
         return new_params, new_opt, metrics
 
@@ -104,14 +129,41 @@ class Trainer:
     device: Any = None
     donate: bool = False
 
+    @property
+    def sharded(self) -> bool:
+        return self.pctx is not None and self.pctx.sharded
+
     def init_state(self, gen: torch.Generator) -> dict:
+        """The full state drawn from ``gen``; on a sharded ``pctx``, this
+        rank's blocks of it (the full tree is drawn on every rank, so the
+        blocks are the unsharded model's)."""
         params = self.model.init(gen, device=resolve_device(self.device))
-        return {"params": params, "opt": adamw_init(params, self.opt_cfg)}
+        return self.shard_state({"params": params,
+                                 "opt": adamw_init(params, self.opt_cfg)})
+
+    def shard_state(self, state: dict) -> dict:
+        """A full train state cut to this rank's blocks on a sharded
+        ``pctx`` (as it is otherwise)."""
+        if not self.sharded:
+            return state
+        cfg, mesh = self.model.cfg, self.pctx.mesh
+        params, opt = state["params"], state["opt"]
+        return {"params": shard_tree(params, param_specs(params, cfg,
+                                                         self.pctx), mesh),
+                "opt": shard_tree(opt, opt_state_specs(opt, params, cfg,
+                                                       self.pctx), mesh)}
 
     def make_sync(self) -> Callable:
         """The mesh's gradient sync, grads -> grads: ``sync_gradients`` with
         ``sync_strategy`` and ``allow_lossy`` over the :class:`ParallelCtx`
-        of the mesh, the sum divided by its DP size."""
+        of the mesh, the sum divided by its DP size; on a sharded ``pctx``,
+        ``sync_sharded_gradients`` over its mesh."""
+        if self.sharded:
+            return functools.partial(
+                sync_sharded_gradients,
+                shardings=shardings_of(self.model, self.pctx),
+                mesh=self.pctx.mesh, strategy=self.sync_strategy,
+                mean_over=self.pctx.dp_size, allow_lossy=self.allow_lossy)
         ctx = make_parallel_ctx(self.mesh)
         if not ctx.dp_axes:
             raise ValueError(
@@ -126,7 +178,7 @@ class Trainer:
         """``fn(state, batch) -> (state, metrics)``. ``sync_fn`` replaces the
         mesh's :meth:`make_sync` (e.g. a ``CompressedSync`` carrying error
         feedback between steps)."""
-        if sync_fn is None and self.mesh is not None:
+        if sync_fn is None and (self.mesh is not None or self.sharded):
             sync_fn = self.make_sync()
         step = make_train_step(self.model, self.opt_cfg, self.pctx,
                                sync_fn=sync_fn, donate=self.donate)

@@ -13,6 +13,7 @@ train step.
 from __future__ import annotations
 
 import json
+import tempfile
 import os
 import weakref
 
@@ -215,6 +216,24 @@ def test_straggler_detection_and_elastic_reshard_waits():
         mon.observe(i, 0.01)
     assert not mon.flagged
     assert mon.observe(20, 0.2) and mon.flagged == [20]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        elastic_reshard("unused", 0, {}, {})
+    # elastic_reshard cuts each rank's block of a checkpoint onto a mesh:
+    # the four blocks of a (2, 2) ("data", "model") mesh, each restored as
+    # its rank would, tile the saved leaf exactly
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.parallel.sharding import Sharding, Spec
+
+    class RankView(AbstractMesh):
+        def __init__(self, rank):
+            super().__init__((2, 2), ("data", "model"))
+            self.coords, self.device = self.coords_of(rank), torch.device("cpu")
+
+    x = torch.arange(48, dtype=torch.float32).reshape(8, 6)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, 2, {"w": x})
+        tmpl = {"w": torch.empty((8, 6), device="meta")}
+        blocks = [elastic_reshard(d, 2, tmpl, {"w": Sharding(
+            RankView(r), Spec("data", "model"))})["w"] for r in range(4)]
+    assert all(b.shape == (4, 3) and b.device.type == "cpu" for b in blocks)
+    assert torch.equal(torch.cat([torch.cat(blocks[:2], 1),
+                                  torch.cat(blocks[2:], 1)]), x)
     assert issubclass(SimulatedFailure, RuntimeError)

@@ -245,8 +245,9 @@ def test_ep_size_picks_the_data_axis_and_refuses_model():
     assert moe.ep_size(Ctx(pod=4, data=1), cfg) == 1
     assert moe.ep_size(Ctx(data=3), cfg) == 1        # 3 does not divide 4
     assert moe.ep_size(Ctx(pod=2, data=2, model=1), cfg) == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        moe.ep_size(Ctx(data=2, model=2), cfg)
+    # a model axis splits the experts' hidden dim on top of EP over data
+    assert moe.ep_size(Ctx(data=2, model=2), cfg) == 2
+    assert moe.ep_size(Ctx(pod=2, data=1, model=2), cfg) == 1
 
 
 # ------------------------------------------------------------- model level
