@@ -275,7 +275,10 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             updated leaf, gathered on rank 0, against one unsharded step on
             the card from the same parameters and batch at the reference's
             2e-2 (SHARD_STEP_TOL), the synced gradients at SHARD_GRAD_TOL;
-            each rank's parameter and moment bytes equal the reckoning from
+            the sharded optimizer against the unsharded AdamW on the same
+            (gathered) synced gradients: each leaf's update at
+            SHARD_UPDATE_TOL, the gradient norm at SHARD_NORM_TOL; each
+            rank's parameter and moment bytes equal the reckoning from
             param_specs/opt_state_specs, the leaves sharded over data and
             model a quarter each; combine launched per step per rank as
             shard_expected_combines reckons from the layout and the sync
@@ -539,6 +542,15 @@ SHARD_BF16_TOL = 3e-2
 #: bf16 (the sharded one rounded per rank before its sums over data and
 #: pod, the unsharded one once); a missing or doubled sum reads 0.5 or more
 SHARD_GRAD_TOL = 5e-2
+#: (a)'s sharded optimizer against the unsharded AdamW run on the sharded
+#: step's own synced gradients (gathered) from the same parameters: the
+#: same arithmetic but for the order of the gradient norm's float32 sum.
+#: Each leaf's ||p1 - p1_unsharded|| / ||p1_unsharded - p0|| within 1e-2
+#: (a missing or doubled update reads 1; a bf16 rounding that flips at
+#: the norm's last bits moves one element by one ulp), and the norm within
+#: 1e-4 (a replicated leaf counted twice adds its whole share)
+SHARD_UPDATE_TOL = 1e-2
+SHARD_NORM_TOL = 1e-4
 
 T_START = time.perf_counter()
 
@@ -3512,6 +3524,21 @@ def _close_reading(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     return ((g - w).abs() / (tol * scale + tol * w.abs())).max().item()
 
 
+def _update_reading(got: torch.Tensor, want: torch.Tensor,
+                    before: torch.Tensor) -> dict:
+    """A sharded optimizer step's result ``got`` against ``want``, the
+    unsharded AdamW's from the same parameters ``before`` and the same
+    gradients: ``update_rel`` = ||got - want|| / ||want - before|| (0 where
+    neither moved, inf where only ``got`` did; a missing or doubled update
+    reads 1), and the share of elements ``want`` moved."""
+    g, w, b = got.double(), want.double(), before.double()
+    step = torch.linalg.vector_norm(w - b).item()
+    diff = torch.linalg.vector_norm(g - w).item()
+    return {"update_rel": (diff / step if step else
+                           0.0 if diff == 0 else math.inf),
+            "moved_share": (w != b).double().mean().item()}
+
+
 def shard_expected_combines(cfg, pctx, plan: list, n_pod: int) -> dict:
     """``combine`` launches one sharded train step of the dense LM makes on
     each rank, from the model's layout alone: per layer a sum over model
@@ -3526,9 +3553,9 @@ def shard_expected_combines(cfg, pctx, plan: list, n_pod: int) -> dict:
     loss's mean over the batch ranks, one each."""
     from repro_torch.models.attention import gqa_tp
     from repro_torch.models.layers import mlp_tp
+    from repro_torch.models.transformer import layer_specs, top_specs
     from repro_torch.parallel.grad_sync import combine_launches_per_sync
-    from repro_torch.parallel.sharding import (is_spec, layer_specs,
-                                               spec_axes, top_specs)
+    from repro_torch.parallel.sharding import is_spec, spec_axes
     from repro_torch import tree as tree_util
 
     def over_data(tree):
@@ -3567,16 +3594,17 @@ def shard_worker(rank: int, port: int, out_dir: str,
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model, moe
     from repro_torch.models.layers import apply_norm, embed_tokens
+    from repro_torch.models.transformer import layer_specs
     from repro_torch.parallel.ctx import make_parallel_ctx
     from repro_torch.parallel.grad_sync import plan_sharded_sync
     from repro_torch.parallel.sharding import (Sharding, Spec, gather_tree,
-                                               is_spec, layer_specs,
-                                               opt_state_specs, param_specs,
-                                               spec_axes)
+                                               is_spec, opt_state_specs,
+                                               param_specs, spec_axes)
     from repro_torch.parallel.tensor_parallel import gather_dims, sum_across
     from repro_torch.runtime.fault import elastic_reshard
     from repro_torch.train.loop import Trainer, shardings_of
-    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update)
 
     on_card = dev_name == "cuda"
     if on_card:
@@ -3692,29 +3720,45 @@ def shard_worker(rank: int, port: int, out_dir: str,
                         return g
 
                     s0, m0 = ref_tr.make_step(sync_fn=cap0)(full, batch)
+                    # the unsharded AdamW on the sharded step's own synced
+                    # gradients: what the sharded optimizer must have done
+                    p1e, _, me = adamw_update(g1, full["opt"],
+                                              full["params"], opt_cfg)
                     sync()
                     reads = {}
-                    for (n, a), (_, b), (_, ga), (_, gb) in zip(
-                            tree_util.named_leaves(p1),
-                            tree_util.named_leaves(s0["params"]),
-                            tree_util.named_leaves(g1),
-                            tree_util.named_leaves(got0["g"])):
+                    for (n, a), (_, b), (_, ga), (_, gb), (_, e), (_, w0) \
+                            in zip(tree_util.named_leaves(p1),
+                                   tree_util.named_leaves(s0["params"]),
+                                   tree_util.named_leaves(g1),
+                                   tree_util.named_leaves(got0["g"]),
+                                   tree_util.named_leaves(p1e),
+                                   tree_util.named_leaves(full["params"])):
                         reads[n] = {
                             "param": _close_reading(a, b, SHARD_STEP_TOL),
                             "param_max_abs": (a.float() - b.float()).abs()
                             .max().item(),
                             "grad_rel": ((ga.float() - gb.float()).abs().max()
                                          / gb.float().abs().max()
-                                         .clamp(min=1e-30)).item()}
+                                         .clamp(min=1e-30)).item(),
+                            **_update_reading(a, e, w0)}
                     rec["step0"] = {
                         "loss_sharded": float(m["loss"]),
                         "loss_unsharded": float(m0["loss"]),
+                        "grad_norm_sharded": float(m["grad_norm"]),
+                        "grad_norm_gathered": float(me["grad_norm"]),
+                        "grad_norm_rel": abs(float(m["grad_norm"])
+                                             / float(me["grad_norm"]) - 1),
                         "leaves": reads,
                         "worst_param_reading": max(r["param"]
                                                    for r in reads.values()),
                         "worst_grad_rel": max(r["grad_rel"]
-                                              for r in reads.values())}
-                    del s0, got0
+                                              for r in reads.values()),
+                        "worst_update_rel": max(r["update_rel"]
+                                                for r in reads.values()),
+                        "leaves_moved": sum(r["moved_share"] > 0
+                                            for r in reads.values()),
+                        "leaves_n": len(reads)}
+                    del s0, got0, p1e
                 del p1, g1
             # a block is held by the ranks that differ only by pod: bit for
             # bit the same there; replicated leaves the same on every rank
@@ -3996,7 +4040,8 @@ def shard_phase(smi: str) -> dict:
           "reshard": {r["rank"]: r["reshard"] for r in ranks},
           "sections_s_rank0": r0["sections_s"], "wall_s": wall,
           "tolerances": {"step": SHARD_STEP_TOL, "bf16": SHARD_BF16_TOL,
-                         "grad": SHARD_GRAD_TOL,
+                         "grad": SHARD_GRAD_TOL, "update": SHARD_UPDATE_TOL,
+                         "norm": SHARD_NORM_TOL,
                          "flash_decode": FD_TOL_TEXT},
           "card": smi})
     bad = []
@@ -4007,6 +4052,13 @@ def shard_phase(smi: str) -> dict:
     if s0["worst_param_reading"] > 1 or s0["worst_grad_rel"] > SHARD_GRAD_TOL:
         bad.append(f"(a) updated leaves (reading {s0['worst_param_reading']})"
                    f" or synced gradients ({s0['worst_grad_rel']})")
+    if (s0["worst_update_rel"] > SHARD_UPDATE_TOL
+            or s0["grad_norm_rel"] > SHARD_NORM_TOL
+            or s0["leaves_moved"] < s0["leaves_n"] // 2):
+        bad.append(f"(a) the sharded AdamW against the unsharded one on the "
+                   f"same gradients: update {s0['worst_update_rel']}, norm "
+                   f"{s0['grad_norm_rel']}, {s0['leaves_moved']} of "
+                   f"{s0['leaves_n']} leaves moved")
     for r in ranks:
         b = r["bytes"]
         if (b["params"] != b["params_reckoned"]

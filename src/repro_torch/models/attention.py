@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_decode.ops import decode_attn
 from repro_torch.kernels.flash_decode.ref import NEG_INF, decode_attention_ref
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        dtype_of, init_norm, tp_active)
+from repro_torch.parallel.sharding import Sharding
 from repro_torch.parallel.tensor_parallel import (copy_to_model, gather_leaf,
                                                   sum_over_model)
 
@@ -103,11 +104,13 @@ def _model_block(n: int, pctx) -> slice:
     return slice(m * per, (m + 1) * per)
 
 
-def _gathered_over_model(p: dict, cfg: ArchConfig, pctx, names) -> dict:
+def _gathered_over_model(p: dict, specs: dict, pctx, names) -> dict:
     """``p`` with the leaves ``names`` gathered whole over ``model`` (used
-    replicated: backward keeps this rank's block of the gradient)."""
-    from repro_torch.parallel.sharding import Sharding, layer_specs
-    specs = layer_specs(cfg, "dense", pctx)["attn"]
+    replicated: backward keeps this rank's block of the gradient);
+    ``specs`` are ``p``'s (the layer's attention specs)."""
+    if specs is None:
+        raise ValueError("attention on a sharded context needs its leaves' "
+                         "specs (block_forward passes the layer's)")
     return {k: (gather_leaf(v, Sharding(pctx.mesh, specs[k]), pctx,
                             axes=(pctx.tp_axis,))
                 if k in names and isinstance(v, torch.Tensor) else v)
@@ -127,7 +130,8 @@ def _repeat_kv(t: torch.Tensor, Hp: int) -> torch.Tensor:
     return t.repeat_interleave(-(-Hp // K), dim=2)[:, :, :Hp]
 
 
-def _gqa_tp_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions, pctx):
+def _gqa_tp_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions, pctx,
+                specs: dict):
     """This rank's query heads and their KV heads under GQA tensor
     parallelism: ``q`` (B, S, Hp/tp, hd) from the local ``wq`` columns; ``k``,
     ``v`` from the local ``wk``/``wv`` when the KV heads split, else (the
@@ -145,7 +149,7 @@ def _gqa_tp_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions, pctx):
         q = q + p["bq"]
     if _mha_ize(cfg, tp):
         names = ("wk", "wv", "bk", "bv") if K % tp == 0 else ()
-        pf = _gathered_over_model(p, cfg, pctx, names)
+        pf = _gathered_over_model(p, specs, pctx, names)
         k = torch.einsum("bsd,dhk->bshk", x, pf["wk"])
         v = torch.einsum("bsd,dhk->bshk", x, pf["wv"])
         if cfg.attn_bias:
@@ -204,19 +208,21 @@ def _write_kv(cache: torch.Tensor, pos_b: torch.Tensor,
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
-               pos, pctx=None) -> tuple[torch.Tensor, dict]:
+               pos, pctx=None, specs=None) -> tuple[torch.Tensor, dict]:
     """x: (B,1,d); cache k/v: (B,S,K,hd), written IN PLACE at ``pos``
     (scalar or per-row (B,) for slot-based continuous batching); a write at
     ``pos >= S`` is dropped and the row then attends to all of S. Under
     tensor parallelism the cache holds this rank's KV heads (as prefill
     left it) and the kernel runs on them; where ``cache_specs`` splits the
-    head dim instead, the cache is gathered over ``model`` for the kernel."""
+    head dim instead, the cache is gathered over ``model`` for the kernel.
+    ``specs``: the layer's attention specs, on a sharded context."""
     B = x.shape[0]
     pos_b = _pos_vec(pos, B, x.device)
     k, v = cache["k"], cache["v"]
     first = 0
     if gqa_tp(cfg, pctx):
-        q, k_new, v_new = _gqa_tp_qkv(p, x, cfg, pos_b[:, None], pctx)
+        q, k_new, v_new = _gqa_tp_qkv(p, x, cfg, pos_b[:, None], pctx,
+                                      specs)
         first = _model_block(_padded_heads(cfg), pctx).start
         _write_kv(k, pos_b, k_new[:, 0])
         _write_kv(v, pos_b, v_new[:, 0])
@@ -225,7 +231,7 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
         # replicated attention over a cache cut as prefill cut it
         # (_cache_block of the mha_ize'd KV): write this rank's block of
         # the new KV, gather the cut dim over model for the kernel
-        p = _gathered_over_model(p, cfg, pctx, tuple(p))
+        p = _gathered_over_model(p, specs, pctx, tuple(p))
         q, k_new, v_new = gqa_qkv(p, x, cfg, pos_b[:, None])
         if _mha_ize(cfg, 1):
             k_new = _repeat_kv(k_new, q.shape[2])
@@ -412,7 +418,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
 
 
 def gqa_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
-                  causal: bool = True, pctx=None) -> tuple[torch.Tensor, dict]:
+                  causal: bool = True, pctx=None,
+                  specs=None) -> tuple[torch.Tensor, dict]:
     """Full-sequence (train/prefill) GQA. Returns (out, cache). KV is
     repeated to one head per query head when the (padded) query heads are
     no multiple of the KV heads, as the reference's ``mha_ize`` does, and
@@ -420,13 +427,14 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
     ``model`` and the KV heads do not. Under tensor parallelism
     (:func:`gqa_tp`) this rank attends with its block of the heads, the
     partial ``wo`` products are summed over ``model``, and the cache holds
-    this rank's KV heads."""
+    this rank's KV heads. ``specs``: the layer's attention specs, on a
+    sharded context."""
     if gqa_tp(cfg, pctx):
-        q, k, v = _gqa_tp_qkv(p, x, cfg, positions, pctx)
+        q, k, v = _gqa_tp_qkv(p, x, cfg, positions, pctx, specs)
         first = _model_block(_padded_heads(cfg), pctx).start
     else:
         if tp_active(pctx):
-            p = _gathered_over_model(p, cfg, pctx, tuple(p))
+            p = _gathered_over_model(p, specs, pctx, tuple(p))
         q, k, v = gqa_qkv(p, x, cfg, positions)
         if _mha_ize(cfg, 1):
             k, v = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2])
@@ -495,7 +503,8 @@ def _mla_latent(p, x, cfg, positions):
 
 
 def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
-                  positions, pctx=None) -> tuple[torch.Tensor, dict]:
+                  positions, pctx=None,
+                  specs=None) -> tuple[torch.Tensor, dict]:
     """Expanded-form MLA for train and prefill: keys and values expanded
     from the latent per head (k_rope shared by every head), causal
     ``flash_attention`` at dk = nope + rope, dv = v. The cache it returns
@@ -503,11 +512,12 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     rope)}``. Under tensor parallelism (:func:`mla_tp`) the latent and the
     rope key, computed replicated, enter this rank's heads through a copy
     to ``model``, the partial ``wo`` products are summed over it, and the
-    cache is cut over ``model`` as ``cache_specs`` lays it out."""
+    cache is cut over ``model`` as ``cache_specs`` lays it out. ``specs``:
+    the layer's attention specs, on a sharded context."""
     m = cfg.mla
     tp = mla_tp(cfg, pctx)
     if tp_active(pctx) and not tp:
-        p = _gathered_over_model(p, cfg, pctx, tuple(p))
+        p = _gathered_over_model(p, specs, pctx, tuple(p))
     q_nope, q_rope = _mla_q(p, x, cfg, positions, pctx)
     c_kv, k_rope = _mla_latent(p, x, cfg, positions)
     c_in, kr_in = ((copy_to_model(c_kv, pctx), copy_to_model(k_rope, pctx))

@@ -16,6 +16,7 @@ remats its block.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -29,8 +30,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        dtype_of, embed_tokens, init_embedding,
                                        init_mlp, init_norm, lm_loss, logits)
-from repro_torch.parallel.sharding import (Sharding, is_spec, layer_specs,
-                                           top_specs)
+from repro_torch.parallel.sharding import Sharding, is_spec, param_specs
 from repro_torch.parallel.tensor_parallel import gather_leaf
 
 
@@ -71,23 +71,63 @@ def _is_expert_stack(names: tuple[str, ...], leaf) -> bool:
             and names[1] in ("w_gate", "w_up", "w_out"))
 
 
-def _unfsdp(p: dict, cfg: ArchConfig, pctx, kind: str) -> dict:
+@functools.lru_cache(maxsize=None)
+def _structure_specs(what: str, cfg: ArchConfig, kind: str, sizes: tuple,
+                     axes: tuple, tp_axis: str):
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.parallel.ctx import ParallelCtx
+    pctx = ParallelCtx(mesh=AbstractMesh(sizes, axes), tp_axis=tp_axis,
+                       dp_axes=tuple(a for a in ("pod", "data") if a in axes))
+    meta = torch.device("meta")
+    if what == "block":
+        tree = init_block(None, cfg, kind, meta)
+    else:
+        tree = {"embed": init_embedding(None, cfg, meta)}
+        if cfg.mtp_depth:
+            tree["mtp"] = {"proj": torch.empty(
+                (2 * cfg.d_model, cfg.d_model), device=meta)}
+    return param_specs(tree, cfg, pctx)
+
+
+def _key(pctx) -> tuple:
+    m = pctx.mesh
+    return (tuple(m.shape[a] for a in m.axis_names), tuple(m.axis_names),
+            pctx.tp_axis)
+
+
+def layer_specs(cfg: ArchConfig, kind: str, pctx):
+    """The specs of one block of ``kind`` ("dense", "moe", "ssm"): the
+    per-layer specs of a stack's leaves (their stack dims stripped), read
+    from the block's structure on the meta device."""
+    return _structure_specs("block", cfg, kind, *_key(pctx))
+
+
+def top_specs(cfg: ArchConfig, pctx) -> dict:
+    """The specs of ``{"embed": ..., "mtp": {"proj"}}`` (the latter with an
+    MTP head)."""
+    return _structure_specs("top", cfg, "", *_key(pctx))
+
+
+def _unfsdp(p: dict, cfg: ArchConfig, pctx, kind: str) -> tuple[dict, dict]:
     """ZeRO-3 for one layer (the reference's ``_unfsdp`` with
     ``gather_weights``): its leaves sharded over ``data`` gathered whole
     over ``data`` at the layer's entry (a reduce-scatter of their gradient
     in backward), ``model`` blocks kept. Expert stacks stay in their EP
-    layout, which the MoE layer consumes as it is."""
+    layout, which the MoE layer consumes as it is. Returns the layer's
+    leaves and their specs (None on an unsharded context), which the
+    attention reads where it gathers its ``model`` blocks."""
     if pctx is None or not pctx.sharded:
-        return p
-    specs = tree_util.leaves(layer_specs(cfg, kind, pctx), is_leaf=is_spec)
+        return p, None
+    specs = layer_specs(cfg, kind, pctx)
     out = []
-    for (name, leaf), spec in zip(tree_util.named_leaves(p), specs,
+    for (name, leaf), spec in zip(tree_util.named_leaves(p),
+                                  tree_util.leaves(specs, is_leaf=is_spec),
                                   strict=True):
         if not _is_expert_stack(tuple(name.split(".")), leaf):
             leaf = gather_leaf(leaf, Sharding(pctx.mesh, spec), pctx,
                                axes=("data",))
         out.append(leaf)
-    return tree_util.unflatten(p, out)
+    return tree_util.unflatten(p, out), specs
 
 
 def _hint(x, cfg: ArchConfig, pctx):
@@ -151,18 +191,19 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
     every layer: ``p`` holds this rank's blocks (``param_specs``), the
     layer's ``data`` shards are gathered at its entry and attention and
     the FFN run split over ``model``."""
-    p = _unfsdp(p, cfg, pctx, kind)
+    p, specs = _unfsdp(p, cfg, pctx, kind)
     x = _hint(x, cfg, pctx)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
         y, state = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
         return x + y, state
+    a_specs = None if specs is None else specs["attn"]
     if cfg.mla is not None:
         y, cache = attn.mla_attention(p["attn"], h, cfg, positions=positions,
-                                      pctx=pctx)
+                                      pctx=pctx, specs=a_specs)
     else:
         y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions,
-                                      pctx=pctx)
+                                      pctx=pctx, specs=a_specs)
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, pctx), cache
@@ -170,7 +211,7 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
 
 def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos,
                  pctx=None):
-    p = _unfsdp(p, cfg, pctx, kind)
+    p, specs = _unfsdp(p, cfg, pctx, kind)
     x = _hint(x, cfg, pctx)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
@@ -179,7 +220,9 @@ def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos,
     if cfg.mla is not None:
         y, cache = attn.mla_decode(p["attn"], h, cfg, cache, pos, pctx)
     else:
-        y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos, pctx)
+        y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos, pctx,
+                                   specs=None if specs is None
+                                   else specs["attn"])
     x = x + y
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, pctx), cache

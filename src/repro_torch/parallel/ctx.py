@@ -10,8 +10,10 @@ shards and the expert stacks, ``tp_axis`` ("model") tensor parallelism.
 The port has no partitioner to choose between gathering weights and
 reducing activations, so a sharded model always gathers its ``data``-
 sharded weights at use: numerically what the reference does with
-``gather_weights=True`` (ROADMAP.md queue 3). ``seq_shard`` (sequence
-parallelism) waits for ROADMAP.md queue 1 item 6b.
+``gather_weights=True``, and the port has no such switch (ROADMAP.md
+queue 3). Nor has it the reference's ``pp_axis``, which no code there
+reads either. ``seq_shard`` (sequence parallelism) waits for ROADMAP.md
+queue 1 item 6b.
 """
 
 from __future__ import annotations
@@ -26,10 +28,6 @@ class ParallelCtx:
     mesh: Any
     dp_axes: tuple[str, ...] = ("data",)   # batch axes (DP/FSDP)
     tp_axis: str = "model"                 # tensor/expert-parallel axis
-    pp_axis: str | None = None             # optional pipeline axis
-    #: ZeRO-3 weight gathering; the port gathers whatever this says (see
-    #: the module docstring)
-    gather_weights: bool = False
     #: Megatron-style sequence parallelism of the residual stream
     seq_shard: bool = False
 

@@ -24,7 +24,6 @@ dims that do not divide the TP axis are replicated, as in the reference.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -367,42 +366,3 @@ def gather_tree(local_tree, specs, mesh):
     return tree_util.unflatten(local_tree, [
         s.gather(x) for s, x in zip(shards, tree_util.leaves(local_tree),
                                     strict=True)])
-
-
-# ------------------------------------------------- specs by model structure
-@functools.lru_cache(maxsize=None)
-def _structure_specs(what: str, cfg: ArchConfig, kind: str, sizes: tuple,
-                     axes: tuple, tp_axis: str):
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.models import layers, transformer
-    from repro_torch.parallel.ctx import ParallelCtx
-    pctx = ParallelCtx(mesh=AbstractMesh(sizes, axes), tp_axis=tp_axis,
-                       dp_axes=tuple(a for a in ("pod", "data") if a in axes))
-    meta = torch.device("meta")
-    if what == "block":
-        tree = transformer.init_block(None, cfg, kind, meta)
-    else:
-        tree = {"embed": layers.init_embedding(None, cfg, meta)}
-        if cfg.mtp_depth:
-            tree["mtp"] = {"proj": torch.empty(
-                (2 * cfg.d_model, cfg.d_model), device=meta)}
-    return param_specs(tree, cfg, pctx)
-
-
-def _key(pctx) -> tuple:
-    m = pctx.mesh
-    return (tuple(m.shape[a] for a in m.axis_names), tuple(m.axis_names),
-            pctx.tp_axis)
-
-
-def layer_specs(cfg: ArchConfig, kind: str, pctx):
-    """The specs of one block of ``kind`` ("dense", "moe", "ssm"): the
-    per-layer specs of a stack's leaves (their stack dims stripped), read
-    from the model's structure on the meta device."""
-    return _structure_specs("block", cfg, kind, *_key(pctx))
-
-
-def top_specs(cfg: ArchConfig, pctx) -> dict:
-    """The specs of ``{"embed": ..., "mtp": {"proj"}}`` (the latter with an
-    MTP head)."""
-    return _structure_specs("top", cfg, "", *_key(pctx))

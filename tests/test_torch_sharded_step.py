@@ -51,7 +51,7 @@ from repro_torch.config import reduced
 from repro_torch.configs import get
 from repro_torch.models import build_model, moe
 from repro_torch.train.loop import Trainer
-from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 8
@@ -79,6 +79,17 @@ D_CASES = (("gqa", {}), ("mha_ize", {"n_kv_heads": 1}),
 #: int8 moments with blocks of 64: some shards cut a block (tokens, wo),
 #: others hold whole blocks (w_gate)
 INT8 = dict(quantize_states=True, qblock=64)
+#: the float32 steps' schedule: lr 1e-3 from the first step (warmup 1), so
+#: a step moves a weight by about 1e-3, three orders above F32_TOL of it
+#: (the default warmup of 100 moves it by 3e-6, which no tolerance of the
+#: updated leaves could tell from no step at all)
+STEP = dict(lr=1e-3, warmup_steps=1)
+#: the sharded optimizer's update p1 - p0 against the unsharded AdamW's
+#: from the same (gathered) synced gradients, relative to the update's
+#: largest element: the same arithmetic but for the order of the gradient
+#: norm's sum, rounded to float32 weights of magnitude up to 1 (ulp 1.2e-7,
+#: 1.2e-4 of an update of 1e-3); an update missing or applied twice reads 1
+DELTA_TOL = 1e-3
 
 WORKER = """
 import datetime, json, sys
@@ -95,10 +106,11 @@ from repro_torch.core.gvas import GlobalArray, addr_of, global_bytes, shard_of
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model, moe
+from repro_torch.models.transformer import layer_specs
 from repro_torch.parallel.ctx import make_parallel_ctx
 from repro_torch.parallel.sharding import (Sharding, Spec, gather_tree,
-                                           layer_specs, opt_state_specs,
-                                           param_specs, shard_tree)
+                                           opt_state_specs, param_specs,
+                                           shard_tree)
 from repro_torch.parallel.tensor_parallel import gather_dims, sum_across
 from repro_torch.runtime.fault import elastic_reshard
 from repro_torch.train.loop import Trainer
@@ -137,7 +149,8 @@ def train_step(cfg, leaves, opt_cfg):
 
     state, m = tr.make_step(sync_fn=capture)(state, shard_batch(batch, pctx))
     specs = param_specs(params, cfg, pctx)
-    out = {"loss": np.float32(m["loss"])}
+    out = {"loss": np.float32(m["loss"]),
+           "grad_norm": np.float32(m["grad_norm"])}
     for pre, tree in (("p.", state["params"]), ("g.", seen["g"])):
         for k, v in bridge.tree_to_numpy(gather_tree(tree, specs,
                                                      mesh)).items():
@@ -153,8 +166,9 @@ def train_step(cfg, leaves, opt_cfg):
 ds7 = dict(np.load(f"{d}/ds7_params.npz"))
 for dtype, qs in (("bfloat16", False), ("float32", False), ("float32", True)):
     cfg = reduced(get("deepseek-7b"), n_layers=2, dtype=dtype)
-    ocfg = AdamWConfig(**({"quantize_states": True, "qblock": 64} if qs
-                          else {}))
+    # bf16: the reference's test, its default schedule; float32: STEP
+    ocfg = AdamWConfig(**({} if dtype == "bfloat16" else STEP),
+                       **(INT8 if qs else {}))
     save(f"A-{dtype}-{'int8' if qs else 'f32'}", train_step(cfg, ds7, ocfg))
 
 # ---- B: granite's MoE layer, EP over data and TP over model
@@ -217,7 +231,7 @@ moe.route = route_orig
 # ---- C: the reduced deepseek-v3 (MLA expanded under TP, EP+TP, MTP)
 cfg = reduced(get("deepseek-v3-671b"), dtype="float32")
 save("C", train_step(cfg, dict(np.load(f"{d}/dsv3_params.npz")),
-                     AdamWConfig()))
+                     AdamWConfig(**STEP)))
 
 # ---- D: sharded prefill, then decode
 for label, over in D_CASES:
@@ -368,7 +382,7 @@ def runs(tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
            "OMP_NUM_THREADS": "1"}
     pre = (f"PREFILL, DECODE = {PREFILL}, {DECODE}\n"
-           f"D_CASES = {D_CASES!r}\n")
+           f"D_CASES = {D_CASES!r}\nINT8, STEP = {INT8!r}, {STEP!r}\n")
     port = str(_free_port())
     procs = [subprocess.Popen(
         [sys.executable, "-c", pre + textwrap.dedent(WORKER), str(r), port,
@@ -402,9 +416,50 @@ def _close(got, want, tol, msg):
                                err_msg=msg)
 
 
+def _close_to_own_scale(got, want, tol, msg):
+    """``got`` within ``tol`` of ``want``'s largest element (no floor of 1:
+    for leaves far below 1, such as the moments and their scales)."""
+    scale = float(np.abs(want).max())
+    assert scale > 0, msg
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=tol,
+                               err_msg=msg)
+
+
+def _check_update(got, leaves_file, cfg, ocfg, msg, runs):
+    """The sharded optimizer against the unsharded ``adamw_update`` run on
+    the sharded step's gathered synced gradients from the same parameters:
+    the gradient norm (the sharded step's ``global_norm`` over shards
+    against the unsharded one) within 1e-6, each leaf's update ``p1 - p0``
+    within DELTA_TOL of its own largest element (every leaf moves), the
+    float32 moments within 1e-6 of their own scale, int8 codes equal and
+    their scales within 1e-6 of their own scale."""
+    model = build_model(cfg)
+    leaves = dict(np.load(runs / leaves_file))
+    p0 = bridge.load_params(model, leaves, device="cpu")
+    grads = bridge.load_params(model, {k[2:]: v for k, v in got.items()
+                                       if k.startswith("g.")}, device="cpu")
+    p1, opt, m = adamw_update(grads, adamw_init(p0, ocfg), p0, ocfg)
+    np.testing.assert_allclose(float(got["grad_norm"]), float(m["grad_norm"]),
+                               rtol=1e-6, err_msg=msg)
+    for k, want in bridge.tree_to_numpy(p1).items():
+        w0 = leaves[k].astype(np.float64)
+        dw = want.astype(np.float64) - w0
+        assert np.abs(dw).max() > 0, (msg, k)
+        _close_to_own_scale(got["p." + k].astype(np.float64) - w0, dw,
+                            DELTA_TOL, f"{msg} update {k}")
+    for k, v in tree_util.named_leaves(opt):
+        g, v = got["o." + k], v.float().numpy()
+        if k.endswith(".q"):
+            np.testing.assert_array_equal(g, v, err_msg=f"{msg} {k}")
+        elif k == "step":
+            assert int(g) == int(v) == 1, msg
+        else:
+            _close_to_own_scale(g, v, 1e-6, f"{msg} moment {k}")
+
+
 def _port_step(runs, cfg, opt_cfg, leaves_file="ds7_params.npz"):
     """The port's unsharded step from the same parameters and batch: loss,
-    gradients and the updated state."""
+    metrics, gradients and the updated state."""
     model = build_model(cfg)
     params = bridge.load_params(model, dict(np.load(runs / leaves_file)),
                                 device="cpu")
@@ -419,7 +474,7 @@ def _port_step(runs, cfg, opt_cfg, leaves_file="ds7_params.npz"):
 
     state, m = tr.make_step(sync_fn=capture)(state, {"tokens": toks,
                                                      "labels": toks})
-    return float(m["loss"]), seen["g"], state
+    return m, seen["g"], state
 
 
 def test_mesh_coordinates_are_row_major(runs):
@@ -445,20 +500,26 @@ def test_sharded_step_matches_reference_unsharded_step(runs):
 
 @pytest.mark.parametrize("moments", ["f32", "int8"])
 def test_sharded_step_matches_port_unsharded_step_f32(runs, moments):
-    """The same step in float32 against the port's unsharded step: loss,
-    synced gradients (the global mean), updated parameters and moments
-    within F32_TOL; with int8 moments (blocks of 64) the codes within one
-    step and the scales within F32_TOL, where some shards cut a block and
-    read their scales whole."""
+    """The same step in float32 (STEP's schedule) against the port's
+    unsharded step: loss, the gradient norm, synced gradients (the global mean), updated parameters within F32_TOL, the
+    moments within F32_TOL of their own scale; with int8 moments (blocks of
+    64) the codes within one step and the scales within F32_TOL of their
+    own scale, where some shards cut a block and read their scales whole.
+    Then the sharded optimizer against the unsharded one on the same
+    gradients (``_check_update``)."""
     cfg = reduced(get("deepseek-7b"), n_layers=2, dtype="float32")
-    ocfg = AdamWConfig(**(INT8 if moments == "int8" else {}))
-    loss, grads, state = _port_step(runs, cfg, ocfg)
+    ocfg = AdamWConfig(**STEP, **(INT8 if moments == "int8" else {}))
+    m, grads, state = _port_step(runs, cfg, ocfg)
     got = dict(np.load(runs / f"A-float32-{moments}.npz"))
-    np.testing.assert_allclose(float(got["loss"]), loss, rtol=F32_TOL)
+    np.testing.assert_allclose(float(got["loss"]), float(m["loss"]),
+                               rtol=F32_TOL)
+    np.testing.assert_allclose(float(got["grad_norm"]),
+                               float(m["grad_norm"]), rtol=F32_TOL)
     for k, v in bridge.tree_to_numpy(grads).items():
         _close(got["g." + k], v, F32_TOL, "grad " + k)
     for k, v in bridge.tree_to_numpy(state["params"]).items():
         _close(got["p." + k], v, F32_TOL, "param " + k)
+    _check_update(got, "ds7_params.npz", cfg, ocfg, moments, runs)
     n_q = 0
     for k, v in tree_util.named_leaves(state["opt"]):
         g = got["o." + k]
@@ -466,8 +527,10 @@ def test_sharded_step_matches_port_unsharded_step_f32(runs, moments):
             n_q += 1
             assert np.abs(g.astype(np.int32) - v.numpy().astype(np.int32)
                           ).max() <= 1, k
+        elif k != "step":
+            _close_to_own_scale(g, v.float().numpy(), F32_TOL, "moment " + k)
         else:
-            _close(g, v.float().numpy(), F32_TOL, "moment " + k)
+            assert int(g) == int(v) == 1
     # m and v of tokens, head, wo, w_gate, w_up, w_out
     assert n_q == (0 if moments == "f32" else 12)
 
@@ -522,15 +585,20 @@ def test_mla_tp_step_matches_unsharded_with_emulated_ep(runs, monkeypatch):
     split over ``model`` by heads, its MoE layers EP over ``data`` and TP
     over ``model``, the MTP head) against the unsharded step with every MoE
     layer run by ``emulate_ep``: loss, synced gradients and updated
-    parameters within MODEL_TOL in float32."""
+    parameters within MODEL_TOL in float32 (STEP's schedule); the sharded
+    optimizer against the unsharded one on the same gradients
+    (``_check_update``)."""
     cfg = reduced(get("deepseek-v3-671b"), dtype="float32")
     monkeypatch.setattr(moe, "apply_moe", lambda p, x, cfg, pctx=None:
                         moe.emulate_ep(p, x, cfg, ep=2, pods=2))
-    loss, grads, state = _port_step(runs, cfg, AdamWConfig(),
-                                    "dsv3_params.npz")
+    m, grads, state = _port_step(runs, cfg, AdamWConfig(**STEP),
+                                 "dsv3_params.npz")
     got = dict(np.load(runs / "C.npz"))
     tol = MODEL_TOL["float32"]
-    np.testing.assert_allclose(float(got["loss"]), loss, rtol=tol)
+    np.testing.assert_allclose(float(got["loss"]), float(m["loss"]),
+                               rtol=tol)
+    np.testing.assert_allclose(float(got["grad_norm"]),
+                               float(m["grad_norm"]), rtol=tol)
     want = bridge.tree_to_numpy(grads)
     assert {"mtp.proj", "moe_stack.attn.wkv_b", "moe_stack.ffn.w_gate"
             } <= set(want)
@@ -538,6 +606,8 @@ def test_mla_tp_step_matches_unsharded_with_emulated_ep(runs, monkeypatch):
         _close(got["g." + k], v, tol, "grad " + k)
     for k, v in bridge.tree_to_numpy(state["params"]).items():
         _close(got["p." + k], v, tol, "param " + k)
+    _check_update(got, "dsv3_params.npz", cfg, AdamWConfig(**STEP),
+                  "deepseek-v3", runs)
 
 
 @pytest.mark.parametrize("label", [c[0] for c in D_CASES])

@@ -30,6 +30,7 @@ from jax.sharding import AbstractMesh
 from repro.checkpoint.store import _leaf_name
 from repro.config import SHAPES as JAX_SHAPES
 from repro.configs import get as jax_get
+from repro.launch import mesh as jax_mesh
 from repro.launch.mesh import make_parallel_ctx as jax_pctx
 from repro.models import build_model as jax_build_model
 from repro.parallel import sharding as jax_sharding
@@ -39,6 +40,8 @@ from repro_torch import tree as tree_util
 from repro_torch.config import SHAPES
 from repro_torch.configs import ALL_ARCHS, EXTRA_ARCHS, get
 from repro_torch.core.gvas import GlobalArray, addr_of, global_bytes
+from repro_torch.data.pipeline import make_batch_specs
+from repro_torch.launch import mesh as torch_mesh
 from repro_torch.launch.mesh import AbstractMesh as TorchAbstractMesh
 from repro_torch.models import build_model
 from repro_torch.parallel import sharding
@@ -135,6 +138,37 @@ def test_batch_and_cache_specs_equal_reference(mesh):
             got = _port_named(sharding.cache_specs(tc, get(arch), shape,
                                                    tctx))
             assert got == want, (arch, name)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True],
+                         ids=["single_pod", "multi_pod"])
+def test_make_production_mesh_is_the_references(monkeypatch, multi_pod):
+    """``make_production_mesh`` lays out the reference's production mesh:
+    the same axes and sizes. Both meshes are made abstract (neither a
+    world of 256 or 512 ranks nor as many devices is at hand), so the
+    shape and axes each function picks are what is compared."""
+    monkeypatch.setattr(jax, "make_mesh", lambda shape, axes, **_:
+                        AbstractMesh(shape, axes))
+    monkeypatch.setattr(torch_mesh, "ProcessMesh", lambda shape, axes, **_:
+                        TorchAbstractMesh(shape, axes))
+    want = jax_mesh.make_production_mesh(multi_pod=multi_pod)
+    got = torch_mesh.make_production_mesh(multi_pod=multi_pod)
+    assert got.axis_names == tuple(want.axis_names)
+    assert got.shape == dict(want.shape)
+    assert got.size == (512 if multi_pod else 256)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_make_batch_specs_is_the_train_batch_specs(mesh):
+    """``make_batch_specs`` gives a train batch's specs: the reference's
+    ``batch_specs`` of the train shape, for every config."""
+    jctx, tctx = _ctxs(mesh)
+    for arch in ARCHS:
+        want = {k: tuple(v) for k, v in jax_sharding.batch_specs(
+            jax_get(arch), JAX_SHAPES["train_4k"], jctx).items()}
+        got = {k: tuple(v) for k, v in make_batch_specs(get(arch),
+                                                        tctx).items()}
+        assert got == want, arch
 
 
 class _RankView(TorchAbstractMesh):
