@@ -18,7 +18,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             spills, wgmma serialisation warnings).
 3. kernels  holds flash_decode against its plain PyTorch version on the
             card (FD_TOL: f32 within 1e-4, bf16 within 1e-3 + 1e-2 of the
-            plain value): the reference package's three test shapes,
+            plain value): first the shapes of the encoder-decoder and VLM
+            decodes (FD_MODEL_TIMING: internvl2-1b's (8, 14 heads over 2,
+            64, S 1280), a GQA group of 7, ragged; whisper-small's cross
+            read (8, 12, 12, 64, 1500), every row at 1500), then the
+            reference package's three test shapes,
             zamba2's head dim 80 (2,32,32,80,80,1024) and a row of 32768 on
             one kv head (2,8,1,128,128,32768: the merge takes several
             passes) in f32 and bf16, the serving shape B=8 H=12 K=4 d=64
@@ -31,7 +35,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             H=64 K=8 d=128 S=8192, three caches) a check, the times of
             kernel (graph replay and eager), plain version and one library
             call (scaled_dot_product_attention, a yardstick the port never
-            calls) against the least time the card could take, and what the
+            calls) against the least time the card could take (and the
+            same at FD_MODEL_TIMING's two shapes), and what the
             check reads for two planted faults (one CTA's partial dropped,
             which it must see; P rounded to bf16 before P.V); and the
             schedule's span, grid and CTAs per SM.
@@ -125,8 +130,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             top kernels), and the wall time of the step's parts timed alone:
             lm_loss forward+backward, the 12 layers' flash attention
             forward+backward, the AdamW update.
-11. ssd_kernel  full-width mamba2-2.7b (bf16, random weights from
-            torch.Generator seed 0, built by Trainer.init_state), then
+11. ssd_kernel  full-width mamba2-2.7b (bf16, random weights drawn on
+            the card from torch.Generator("cuda") seed 0, built by
+            Trainer.init_state), then
             ssd_scan against its plain version (the sequential recurrence)
             on the card, asserting the variant of every check
             (launches_by_variant): the reference package's three test
@@ -163,8 +169,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
 15. hybrid_train  full-width zamba2-2.7b (HybridLM: 54 Mamba-2 layers of
             d_state 64 in 9 groups of 6, each group followed by the one
             shared attention + gated-GELU block, 32 heads of 80; bf16,
-            random weights from torch.Generator seed 0, built by
-            Trainer.init_state, after the Mamba-2 model is freed): ssd_scan
+            random weights drawn on the card from torch.Generator("cuda")
+            seed 0, built by Trainer.init_state, after the Mamba-2 model is
+            freed): ssd_scan
             at the hybrid's layer shape from its first layer's real inputs
             (mma_sync against ssd_chunked_tc and the float32 form, ffma
             against the float32 form, SSD_FULL_TOL), then ssm_train's run
@@ -187,12 +194,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             bf16 cache (one row at 1024, one at 613).
 18. moe_train  full-width granite-moe-1b-a400m (LM with 24 MoE layers: 32
             experts, top 8, expert FFN 512, 16 heads over 8 KV heads of 64;
-            bf16, random weights from torch.Generator seed 0, built by
-            Trainer.init_state after the hybrid is freed; _unported must
-            not refuse it): Trainer.make_step, batch 4 x seq 2048, 20 AdamW
-            steps, SyntheticTokens seed 0, gated on held-out batches as
-            ssm_train (MOE_TRAIN); every loss finite, no flash_decode
-            launch in training; ms per step, tokens/s, peak memory, and
+            bf16, random weights drawn on the card from
+            torch.Generator("cuda") seed 0, built by Trainer.init_state
+            after the hybrid is freed): Trainer.make_step, batch 4 x seq
+            2048, 20 AdamW steps, SyntheticTokens seed 0, gated on held-out
+            batches as ssm_train (MOE_TRAIN); every loss finite, no
+            flash_decode launch in training; ms per step, tokens/s, peak
+            memory, and
             the dropped share of routed slots per layer in steps 0 and 19
             (moe.drop_log over the forward pass).
 19. moe_train_profile  1 more step under torch.profiler (shapes
@@ -209,10 +217,10 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             flash_decode's (64, 64) instance launched 24 times (once per
             layer) per decode_step; the kernel against its plain version at
             FD_TOL on layer 0's own bf16 cache (the row at 512, and at 317).
-21. moe_serve  ServeEngine(slots=8, window=2048) on the first 12 of the
+21. moe_serve  ServeEngine(slots=8, window=2048) on the first 6 of the
             trained layers (MOE_SERVE_LAYERS, full width), 16 requests of
             64-512 prompt tokens (MOE_SERVE_PROMPTS, numpy seed 0) and 32
-            new tokens each: 16/16 done, tokens in the vocabulary, 12
+            new tokens each: 16/16 done, tokens in the vocabulary, 6
             flash_decode launches per decode_step; ms per decode_step and
             tokens/s.
 22. moe_ep  expert parallelism over data on this one card: four processes
@@ -298,6 +306,34 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             equal emulate_ep's (EP with a model axis of 1) on the gathered
             tokens, the output, input gradient and parameter gradients
             within SHARD_BF16_TOL.
+29. whisper_train  full-width whisper-small (EncDecLM: 12 encoder and 12
+            decoder layers, d_model 768, 12 heads of 64, GELU, LayerNorm,
+            learned positions, vocab 51,865; 0.30 B parameters; bf16,
+            random weights drawn on the card from torch.Generator seed 0):
+            Trainer.make_step, 8 rows of 448 decoder tokens over 1,500 stub
+            frames each, 16 AdamW steps (WHISPER_TRAIN), gated on held-out
+            batches as ssm_train; every loss finite, no flash_decode launch;
+            ms per step, frames/s, tokens/s, peak memory.
+30. whisper_decode  batch 1: prefill of 1,500 frames and 63 tokens, one
+            decode_step of token 64 against the 64-token prefill, gated as
+            hybrid_decode (bf16 and the float32 twin); then 8 rows of 1,500
+            frames and 16-63 prompt tokens, each prefilled alone into a
+            448-row window, 32 greedy decode_steps: 24 flash_decode
+            launches a decode_step (12 self, 12 cross over all 1,500
+            encoder rows), tokens in the vocabulary, ms per decode_step;
+            the kernel against its plain version on the phase's layer-0
+            cross cache (8, 1500, 12, 64) and self cache at FD_TOL.
+31. vlm_train  full-width internvl2-1b (LM with the patch prefix: Qwen2-
+            0.5B's 24 layers, d_model 896, 14 heads over 2 KV heads of 64,
+            QKV bias, RoPE 1e6, vocab 151,655; 0.63 B; bf16, drawn on the
+            card): 4 rows of 256 stub patches and 2,048 tokens, 16 steps
+            (VLM_TRAIN), gated and reported as whisper_train.
+32. vlm_decode  batch 1: prefill of 256 patches and 511 tokens, one
+            decode_step at pos 767 against the prefill of 768 positions,
+            gated as whisper_decode; then 8 rows of 256 patches and 64-511
+            tokens, each prefilled alone into a 256 + 1,024 window, 32
+            greedy decode_steps: 24 flash_decode launches a decode_step
+            (group size 7); the kernel on the layer-0 cache at FD_TOL.
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -370,6 +406,18 @@ SERVE_SHAPE = dict(B=8, H=12, K=4, dk=64, dv=64, S=2048)
 #: the fixed costs, sets the time
 FD_TIMING = {"serving": (SERVE_SHAPE, 8),
              "long": (dict(B=8, H=64, K=8, dk=128, dv=128, S=8192), 3)}
+#: the shapes the encoder-decoder and VLM decodes give flash_decode, checked
+#: in f32 and bf16 and timed in bf16 like FD_TIMING's, with the number of
+#: caches taken in turn and whether every row is at its full length:
+#: internvl2-1b's decode (14 heads over 2 KV heads: a GQA group of 7, one
+#: row tile of 7 of ROW_TILE's 8; a 256 + 1,024 window, ragged lengths; 5.2
+#: MB a cache, so 16 caches as a step's 24 layers read ~126 MB), and
+#: whisper-small's cross read (12 heads over 12, all 1,500 encoder rows of
+#: every row; 36.9 MB a cache, 4 caches as a step's 12 layers read 442 MB)
+FD_MODEL_TIMING = {
+    "internvl_decode": (dict(B=8, H=14, K=2, dk=64, dv=64, S=1280), 16,
+                        False),
+    "whisper_cross": (dict(B=8, H=12, K=12, dk=64, dv=64, S=1500), 4, True)}
 #: flash_decode against its plain version, (atol, rtol): |kernel - plain|
 #: <= atol + rtol |plain|. f32 differs by summation order only; bf16 may
 #: differ by one step of the bf16 output (at most 2^-7 of it) where the two
@@ -465,11 +513,12 @@ MOE_DECODE_NO_DROP_CF = 2.0
 #: script 828.9 s without the deepseek phases and 981.8 s with them (PERF.md
 #: section 2)
 MOE_SERVE_PROMPTS = (64, 512)
-#: moe_serve's depth: the first 12 of the 24 trained layers, full width. At
+#: moe_serve's depth: the first 6 of the 24 trained layers, full width. At
 #: 24 layers the phase took 171.3-176.4 s (1,440 host-bound decode_steps,
-#: ~101 ms each) and the whole script 952.2 s once the shard phase came
-#: (PERF.md section 2)
-MOE_SERVE_LAYERS = 12
+#: ~101 ms each) and the whole script 952.2 s once the shard phase came; at
+#: 12, 80.4-117.3 s, and the whole script 1,058.9 s once the whisper and
+#: VLM phases came (PERF.md section 2)
+MOE_SERVE_LAYERS = 6
 #: expert parallelism on four ranks of this one card: full width at
 #: reduced depth, a global batch of 8 x 512
 MOE_EP = dict(world=4, mesh=(2, 2), n_layers=2, global_batch=8, seq=512,
@@ -551,6 +600,36 @@ SHARD_GRAD_TOL = 5e-2
 #: 1e-4 (a replicated leaf counted twice adds its whole share)
 SHARD_UPDATE_TOL = 1e-2
 SHARD_NORM_TOL = 1e-4
+
+#: phases 29-32, the encoder-decoder and VLM families at full width (bf16,
+#: weights drawn on the card from torch.Generator("cuda") seed 0). Training
+#: is gated as SSM_TRAIN on 8 held-out batches (eval_steps, never trained
+#: on), the schedule decayed over the steps. whisper-small: 8 rows of 448
+#: decoder tokens (Whisper's text context) over 1,500 stub frames each;
+#: internvl2-1b: 4 rows of 256 patches and 2,048 tokens. lr 6e-4: at 1e-3
+#: the held-out mean fell 0.080, -0.049 and 0.025 nats in whisper's 16, 24
+#: and 32 steps (train losses swinging 11.08-11.82), and 0.050 in
+#: internvl's 16 (-0.002 at step 12); at 6e-4 and 16 steps whisper fell
+#: 0.102 and internvl 0.195, every internvl batch by 0.14-0.25
+#: (scripts/family_lr_probe.py on an H100 80GB HBM3, 700 W; PERF.md
+#: section 6). min_drop is half of whisper's drop there, as SSM_TRAIN's
+#: rule; internvl keeps MOE_TRAIN's
+WHISPER_TRAIN = dict(batch=8, seq=448, steps=16, lr=6e-4, warmup=4,
+                     eval_steps=(10_000, 10_008), min_drop=0.05)
+VLM_TRAIN = dict(batch=4, seq=2048, steps=16, lr=6e-4, warmup=4,
+                 eval_steps=(10_000, 10_008), min_drop=0.07)
+#: whisper_decode: 8 rows, each prefilled alone (1,500 frames and a prompt
+#: of 16-63 tokens, numpy seed 0), the self caches copied into a 448-row
+#: window, then 32 greedy decode_steps; batch-1 decode against prefill at
+#: 63 + 1 tokens
+WHISPER_DECODE = dict(batch=8, prompt=(16, 63), window=448, steps=32,
+                      check_len=64)
+#: vlm_decode: batch-1 decode against prefill at 256 patches + 511 + 1
+#: tokens (pos 767); then 8 rows of 256 patches and a prompt of 64-511
+#: tokens (numpy seed 0), each prefilled alone, in a 256 + 1,024 window,
+#: 32 greedy decode_steps
+VLM_DECODE = dict(check_len=512, batch=8, prompt=(64, 511), window=1280,
+                  steps=32)
 
 T_START = time.perf_counter()
 
@@ -738,9 +817,10 @@ def profile_summary(prof, steps: int, wall_s: float, smi: str) -> dict:
             "card": smi}
 
 
-def make_case(B, H, K, dk, dv, S, dtype, seed):
-    """q, k, v on the card; lengths per row in [1, S] with 1 and S present;
-    NaN past each row's length in the kernel's copy of k and v."""
+def make_case(B, H, K, dk, dv, S, dtype, seed, full: bool = False):
+    """q, k, v on the card; lengths per row in [1, S] with 1 and S present
+    (``full``: every row at S, as a cross cache is read); NaN past each
+    row's length in the kernel's copy of k and v."""
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     q = torch.from_numpy(rng.standard_normal((B, H, dk), np.float32))
@@ -751,6 +831,8 @@ def make_case(B, H, K, dk, dv, S, dtype, seed):
     lengths[0] = 1
     if B > 1:
         lengths[1] = S
+    if full:
+        lengths[:] = S
     lengths = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     live = torch.arange(S, device=dev)[None, :] < lengths[:, None].long()
     kp = k.masked_fill(~live[:, :, None, None], float("nan"))
@@ -877,15 +959,16 @@ def fd_graph_check(decode_attn, ref) -> dict:
 
 
 def fd_timing(label, shape, n_sets, decode_attn, ref, hbm_bytes, hbm,
-              peak) -> dict:
+              peak, full: bool = False) -> dict:
     """flash_decode at one timing shape in bf16, ragged lengths from
-    make_case, n_sets distinct caches taken in turn: the kernel (CUDA-graph
+    make_case (``full``: every row at S), n_sets distinct caches taken in
+    turn: the kernel (CUDA-graph
     replay and eager), the plain version and one library call
     (scaled_dot_product_attention, a yardstick the port never calls) beside
     the least time the card could take. The first case, NaN-poisoned past
     each row's length, is held against the plain version first."""
     B, H, K, dk, dv, S = (shape[x] for x in ("B", "H", "K", "dk", "dv", "S"))
-    first = make_case(B, H, K, dk, dv, S, torch.bfloat16, 30)
+    first = make_case(B, H, K, dk, dv, S, torch.bfloat16, 30, full)
     q, k, v, kp, vp, lengths = first
     got = decode_attn(q, kp, vp, lengths)
     want = ref(q, k, v, lengths)
@@ -897,7 +980,8 @@ def fd_timing(label, shape, n_sets, decode_attn, ref, hbm_bytes, hbm,
                              f"shape: reading {reading} > 1 ({FD_TOL_TEXT})")
     del kp, vp, got, want
     sets = [(q, k, v)] + [make_case(B, H, K, dk, dv, S, torch.bfloat16,
-                                    30 + j)[:3] for j in range(1, n_sets)]
+                                    30 + j, full)[:3]
+                          for j in range(1, n_sets)]
     del first
     turn = {"i": 0}
 
@@ -1985,7 +2069,7 @@ def ssm_phases(smi: str, acts) -> dict:
                                     decay_steps=SSM_TRAIN["steps"]),
                  device="cuda")
     t0 = time.perf_counter()
-    state = tr.init_state(torch.Generator().manual_seed(0))
+    state = tr.init_state(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     data = SyntheticTokens(cfg, batch=SSM_TRAIN["batch"],
@@ -2218,7 +2302,7 @@ def hybrid_phases(smi: str, acts) -> dict:
                                     decay_steps=HYBRID_TRAIN["steps"]),
                  device="cuda")
     t0 = time.perf_counter()
-    state = tr.init_state(torch.Generator().manual_seed(0))
+    state = tr.init_state(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     data = SyntheticTokens(cfg, batch=HYBRID_TRAIN["batch"],
@@ -2685,22 +2769,20 @@ def moe_phases(smi: str, acts) -> dict:
     from repro_torch.kernels.flash_decode.ref import decode_attention_ref
     from repro_torch.models import LM, build_model, moe
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models.transformer import _unported
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train.loop import Trainer
     from repro_torch.train.optimizer import AdamWConfig
     cfg = get("granite-moe-1b-a400m")
-    why = _unported(cfg)
     model = build_model(cfg)
-    if why is not None or not isinstance(model, LM):
-        raise AssertionError(f"granite: _unported says {why!r}, build_model "
-                             f"gave {type(model).__name__}")
+    if not isinstance(model, LM):
+        raise AssertionError(f"granite: build_model gave "
+                             f"{type(model).__name__}")
     L, k = cfg.n_layers, cfg.moe.top_k
     mt = MOE_TRAIN
     tr = Trainer(model, AdamWConfig(lr=mt["lr"], warmup_steps=mt["warmup"],
                                     decay_steps=mt["steps"]), device="cuda")
     t0 = time.perf_counter()
-    state = tr.init_state(torch.Generator().manual_seed(0))
+    state = tr.init_state(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_util.leaves(state["params"]))
@@ -2750,7 +2832,7 @@ def moe_phases(smi: str, acts) -> dict:
     emit({"phase": "moe_train", "arch": cfg.name, "dtype": cfg.dtype,
           "params": n_params, "entry": "Trainer.make_step", **mt,
           "experts": cfg.moe.n_experts, "top_k": k,
-          "unported": why, "losses": losses,
+          "losses": losses,
           "first5_mean": float(np.mean(losses[:5])),
           "last5_mean": float(np.mean(losses[-5:])),
           "held_out_losses_before": held_before,
@@ -3156,7 +3238,6 @@ def ds_phases(smi: str, acts) -> dict:
     from repro_torch.models import LM, build_model, moe
     from repro_torch.models import attention as attn_mod
     from repro_torch.models.layers import apply_norm, embed_tokens
-    from repro_torch.models.transformer import _unported
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train.loop import Trainer
     from repro_torch.train.optimizer import AdamWConfig
@@ -3166,11 +3247,10 @@ def ds_phases(smi: str, acts) -> dict:
     for m in kmods.values():
         m.launches = 0
     cfg, tcfg = ds_configs()
-    why = _unported(cfg)
     model, tmodel = build_model(cfg), build_model(tcfg)
-    if why is not None or not isinstance(model, LM):
-        raise AssertionError(f"deepseek: _unported says {why!r}, "
-                             f"build_model gave {type(model).__name__}")
+    if not isinstance(model, LM):
+        raise AssertionError(f"deepseek: build_model gave "
+                             f"{type(model).__name__}")
 
     def gen():
         return torch.Generator(dev).manual_seed(0)
@@ -4111,6 +4191,383 @@ def shard_phase(smi: str) -> dict:
                 "max_abs_err": r0["decode"]["cache_check"]["max_abs_err"]}}
 
 
+# ------------------------------------------------ encoder-decoder and VLM
+def family_train_phase(phase: str, train: dict, model, state, step_fn, data,
+                       smi: str, **extra) -> dict:
+    """``train``'s steps of ``step_fn`` (the whisper_train and vlm_train
+    phases): every loss finite, the mean loss of the held-out batches
+    falling by min_drop, and no flash_decode launch (training attends
+    through the plain flash_attention). ``state`` advances in place, as in
+    :func:`ssd_train_phase`. Emits the phase's line (with ``extra``) and
+    returns it."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels.flash_decode import kernel as fd
+    cfg = model.cfg
+    held = [data.batch_at(i) for i in range(*train["eval_steps"])]
+
+    def held_loss(params):
+        with torch.no_grad():
+            return [float(model.loss_fn(params, b)) for b in held]
+
+    held_before = held_loss(state["params"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd.launches = 0
+    losses, walls = [], []
+    t_run = time.perf_counter()
+    for i in range(train["steps"]):
+        t = time.perf_counter()
+        new, metrics = step_fn(state, data.batch_at(i))
+        state.update(new)
+        del new
+        losses.append(float(metrics["loss"]))       # waits for the step
+        walls.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    train_fd = fd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held_after = held_loss(state["params"])
+    drop = float(np.mean(held_before) - np.mean(held_after))
+    steady_s = float(np.mean(walls[1:]))
+    rows = train["batch"]
+    rates = {"tok_per_s": rows * train["seq"] / steady_s}
+    if cfg.encdec is not None:
+        rates["frames_per_s"] = rows * cfg.encdec.encoder_seq / steady_s
+    if cfg.vision is not None:
+        rates["patches_per_s"] = rows * cfg.vision.n_patches / steady_s
+    line = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+            "params": sum(t.numel() for t in
+                          tree_util.leaves(state["params"])),
+            "entry": "Trainer.make_step", **train, "losses": losses,
+            "held_out_losses_before": held_before,
+            "held_out_losses_after": held_after, "held_out_mean_drop": drop,
+            "threshold": f"held_out_mean_drop >= {train['min_drop']}",
+            "wall_s": run_s, "step_wall_ms": [w * 1e3 for w in walls],
+            "ms_per_step_wall": steady_s * 1e3, **rates,
+            "peak_mem_GB": peak_gb, "flash_decode_launches": train_fd,
+            **extra, "card": smi}
+    emit(line)
+    if train_fd:
+        raise AssertionError(f"{phase}: flash_decode launched {train_fd} "
+                             "times in training")
+    if not all(np.isfinite(losses + held_before + held_after)):
+        raise AssertionError(f"a {phase} loss is not finite: {losses}, "
+                             f"held-out {held_before} -> {held_after}")
+    if not drop >= train["min_drop"]:
+        raise AssertionError(f"the {phase} loss did not fall: held-out "
+                             f"batches {held_before} -> {held_after}")
+    return line
+
+
+def into_window(cache, caches, row: int | None = None) -> None:
+    """Copy the caches of a prefill (leaves (L, b, s, ...)) into the
+    window ``cache`` (leaves (L, B, S, ...), s <= S): into every row, or
+    into row ``row`` from a batch-1 prefill. A cross cache (s = S_enc)
+    fills its leaf."""
+    from repro_torch import tree as tree_util
+    for dst, src in zip(tree_util.leaves(cache), tree_util.leaves(caches),
+                        strict=True):
+        n = src.shape[2]
+        if row is None:
+            dst[:, :, :n] = src
+        else:
+            dst[:, row, :n] = src[:, 0]
+
+
+def family_decode_check(model, model32, params, params32, inputs: dict,
+                        S: int) -> tuple[bool, dict, int]:
+    """Batch 1: the last logits of a prefill of ``inputs`` (tokens (1, S)
+    and the frames or patches) against one decode_step of token S - 1 after
+    a prefill of S - 1 tokens, its caches copied into a window one longer
+    (``pos`` counts a VLM's patches), in bf16 and in the float32 twin,
+    gated by :func:`decode_readings` as hybrid_decode. Returns (ok,
+    readings, flash_decode launches of the bf16 decode_step)."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    n_pre = model.cfg.vision.n_patches if model.cfg.vision else 0
+    toks = inputs["tokens"][:, :S]
+    rest = {k: v for k, v in inputs.items() if k != "tokens"}
+    out, launches = [], []
+    for m, p in ((model, params), (model32, params32)):
+        with torch.no_grad():
+            full, _ = m.prefill(p, {"tokens": toks, **rest})
+            _, caches = m.prefill(p, {"tokens": toks[:, :S - 1], **rest})
+            cache = m.init_cache(1, n_pre + S, device="cuda")
+            into_window(cache, caches)
+            del caches
+            before = fd.launches
+            lg, _ = m.decode_step(p, cache, {
+                "token": toks[:, S - 1], "pos": torch.tensor(n_pre + S - 1)})
+            torch.cuda.synchronize()
+        launches.append(fd.launches - before)
+        out += [full, lg]
+        del cache
+    ok, readings = decode_readings(*out)
+    readings["flash_decode_launches"] = {"bfloat16": launches[0],
+                                         "float32": launches[1]}
+    return ok, readings, launches[0]
+
+
+def family_serve_decode(model, params, row_inputs: list[dict], window: int,
+                        steps: int) -> dict:
+    """Rows of different prompt lengths, each prefilled alone and copied
+    into row b of a ``window`` cache, then ``steps`` greedy decode_steps of
+    the whole batch at per-row positions (a VLM's count its patches). The
+    counter is set to 0 just before the decode_steps and read after them.
+    Returns the readings, the layer-0 caches and the final positions."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    cfg = model.cfg
+    n_pre = cfg.vision.n_patches if cfg.vision else 0
+    B = len(row_inputs)
+    cache = model.init_cache(B, window, device="cuda")
+    first = torch.empty(B, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for b, inp in enumerate(row_inputs):
+            lg, caches = model.prefill(params, inp)
+            into_window(cache, caches, b)
+            first[b] = lg[0, -1].argmax()
+            del caches
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pos = torch.tensor([n_pre + inp["tokens"].shape[1] for inp in
+                        row_inputs], dtype=torch.int64, device="cuda")
+    tok, toks, walls = first, [], []
+    fd.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(steps):
+            t = time.perf_counter()
+            lg, _ = model.decode_step(params, cache, {"token": tok,
+                                                      "pos": pos})
+            tok = lg[:, -1].argmax(-1)
+            toks.append(tok.cpu())                  # waits for the step
+            walls.append(time.perf_counter() - t)
+            pos = pos + 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fd.launches
+    toks = torch.stack(toks, 1)
+    return {"rows": B, "window": window, "decode_steps": steps,
+            "prompt_tokens": [int(inp["tokens"].shape[1])
+                              for inp in row_inputs],
+            "prefill_s": prefill_s, "decode_wall_s": wall,
+            "ms_per_decode_step": float(np.mean(walls[1:])) * 1e3,
+            "new_tok_per_s": B * steps / wall,
+            "flash_decode_launches": launches,
+            "flash_decode_launches_per_decode_step": launches / steps,
+            "tokens_in_vocab": bool(((toks >= 0)
+                                     & (toks < cfg.vocab_size)).all()),
+            "first_tokens": toks[0, :8].tolist(),
+            "cache": cache, "end_pos": pos}
+
+
+def cache_check(q_seed: int, H: int, k, v, lengths) -> dict:
+    """flash_decode against its plain version on a model's own bf16 cache
+    (k, v (B, S, K, hd)) at per-row ``lengths``, a random query of ``H``
+    heads, read at FD_TOL."""
+    from repro_torch.kernels.flash_decode.ops import decode_attn
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    B, S, K, hd = k.shape
+    q = torch.from_numpy(np.random.default_rng(q_seed).standard_normal(
+        (B, H, hd), np.float32)).cuda().bfloat16()
+    lengths = lengths.to(torch.int32)
+    got = decode_attn(q, k, v, lengths)
+    want = decode_attention_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    return {"shape": [B, H, K, hd, hd, S], "lengths": lengths.tolist(),
+            "max_err": (got.float() - want.float()).abs().max().item(),
+            "reading": fd_reading(got, want), "tol": FD_TOL_TEXT}
+
+
+def whisper_phases(smi: str) -> dict:
+    """Phases 29-30 on full-width whisper-small (EncDecLM); returns its
+    readings of flash_decode for the kernels line."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import EncDecLM, build_model
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get("whisper-small")
+    model = build_model(cfg)
+    if not isinstance(model, EncDecLM):
+        raise AssertionError(f"whisper: build_model gave "
+                             f"{type(model).__name__}")
+    L, S_enc = cfg.n_layers, cfg.encdec.encoder_seq
+    wt = WHISPER_TRAIN
+    tr = Trainer(model, AdamWConfig(lr=wt["lr"], warmup_steps=wt["warmup"],
+                                    decay_steps=wt["steps"]), device="cuda")
+    t0 = time.perf_counter()
+    state = tr.init_state(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticTokens(cfg, batch=wt["batch"], seq=wt["seq"], seed=0,
+                           device="cuda")
+
+    # --------------------------------------------------- 29. whisper_train
+    family_train_phase("whisper_train", wt, model, state, tr.make_step(),
+                       data, smi, encoder_layers=cfg.encdec.n_encoder_layers,
+                       decoder_layers=L, frames=S_enc, init_state_s=init_s)
+
+    # -------------------------------------------------- 30. whisper_decode
+    params = state["params"]
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    wd = WHISPER_DECODE
+    batch = data.batch_at(300)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = tree_util.tree_map(lambda t: t.float(), params)
+    agree, readings, fd_check = family_decode_check(
+        model, model32, params, params32,
+        {"tokens": batch["tokens"][:1], "frames": batch["frames"][:1]},
+        wd["check_len"])
+    del params32, model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    lo, hi = wd["prompt"]
+    lens = rng.integers(lo, hi + 1, wd["batch"])
+    more = SyntheticTokens(cfg, batch=wd["batch"], seq=hi, seed=1,
+                           device="cuda").batch_at(0)
+    rows = [{"tokens": more["tokens"][b:b + 1, :int(n)],
+             "frames": more["frames"][b:b + 1]} for b, n in enumerate(lens)]
+    run = family_serve_decode(model, params, rows, wd["window"], wd["steps"])
+    cache, end = run.pop("cache"), run.pop("end_pos")
+    full = torch.full((wd["batch"],), S_enc, device="cuda")
+    checks = {"cross": cache_check(4, cfg.n_heads, cache["cross"][0][0],
+                                   cache["cross"][1][0], full),
+              "self": cache_check(5, cfg.n_heads, cache["self"]["k"][0],
+                                  cache["self"]["v"][0], end)}
+    del cache
+    want = 2 * L
+    ok = (agree and fd_check == want and run["tokens_in_vocab"]
+          and run["flash_decode_launches"] == want * wd["steps"]
+          and all(c["reading"] <= 1 for c in checks.values()))
+    line = {"phase": "whisper_decode", "arch": cfg.name, "dtype": cfg.dtype,
+            "frames": S_enc,
+            "decode_check": {"batch": 1, "prefill_len": wd["check_len"] - 1,
+                             "full_len": wd["check_len"], "agrees": agree,
+                             **readings},
+            **run,
+            "expected_per_decode_step": f"{want} ({L} self + {L} cross), "
+                                        "(64, 64)",
+            "layer0_cache_checks": checks, "ok": ok, "card": smi}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"whisper decode: {readings}; flash_decode "
+                             f"{run['flash_decode_launches']} launches in "
+                             f"{wd['steps']} decode_steps, {fd_check} in the "
+                             f"check (expected {want} each); cache checks "
+                             f"{checks}")
+    del params, model, data, batch, more
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"path": "whisper_decode", "launches": run["flash_decode_launches"],
+            "launches_per_decode_step":
+                run["flash_decode_launches_per_decode_step"],
+            "decode_check_launches": sum(
+                readings["flash_decode_launches"].values()),
+            "max_abs_err": max(c["max_err"] for c in checks.values()),
+            "reading": max(c["reading"] for c in checks.values()),
+            "checked_on": "whisper_decode's layer-0 cross cache (all 1,500 "
+                          "rows) and self cache"}
+
+
+def vlm_phases(smi: str) -> dict:
+    """Phases 31-32 on full-width internvl2-1b (LM with the patch prefix);
+    returns its readings of flash_decode for the kernels line."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import LM, build_model
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get("internvl2-1b")
+    model = build_model(cfg)
+    if not isinstance(model, LM):
+        raise AssertionError(f"internvl: build_model gave "
+                             f"{type(model).__name__}")
+    L, n_pre = cfg.n_layers, cfg.vision.n_patches
+    vt = VLM_TRAIN
+    tr = Trainer(model, AdamWConfig(lr=vt["lr"], warmup_steps=vt["warmup"],
+                                    decay_steps=vt["steps"]), device="cuda")
+    t0 = time.perf_counter()
+    state = tr.init_state(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticTokens(cfg, batch=vt["batch"], seq=vt["seq"], seed=0,
+                           device="cuda")
+
+    # ------------------------------------------------------ 31. vlm_train
+    family_train_phase("vlm_train", vt, model, state, tr.make_step(), data,
+                       smi, patches=n_pre, layers=L,
+                       positions_per_row=n_pre + vt["seq"],
+                       init_state_s=init_s)
+
+    # ----------------------------------------------------- 32. vlm_decode
+    params = state["params"]
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    vd = VLM_DECODE
+    batch = data.batch_at(300)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = tree_util.tree_map(lambda t: t.float(), params)
+    agree, readings, fd_check = family_decode_check(
+        model, model32, params, params32,
+        {"tokens": batch["tokens"][:1], "patches": batch["patches"][:1]},
+        vd["check_len"])
+    del params32, model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    lo, hi = vd["prompt"]
+    lens = rng.integers(lo, hi + 1, vd["batch"])
+    more = SyntheticTokens(cfg, batch=vd["batch"], seq=hi, seed=1,
+                           device="cuda").batch_at(0)
+    rows = [{"tokens": more["tokens"][b:b + 1, :int(n)],
+             "patches": more["patches"][b:b + 1]}
+            for b, n in enumerate(lens)]
+    run = family_serve_decode(model, params, rows, vd["window"], vd["steps"])
+    cache, end = run.pop("cache"), run.pop("end_pos")
+    check = cache_check(6, cfg.n_heads, cache["dense"]["k"][0],
+                        cache["dense"]["v"][0], end)
+    del cache
+    ok = (agree and fd_check == L and run["tokens_in_vocab"]
+          and run["flash_decode_launches"] == L * vd["steps"]
+          and check["reading"] <= 1)
+    line = {"phase": "vlm_decode", "arch": cfg.name, "dtype": cfg.dtype,
+            "patches": n_pre,
+            "decode_check": {"batch": 1, "prefill_len": n_pre
+                             + vd["check_len"] - 1,
+                             "full_len": n_pre + vd["check_len"],
+                             "decode_pos": n_pre + vd["check_len"] - 1,
+                             "agrees": agree, **readings},
+            **run,
+            "expected_per_decode_step": f"{L} (one per layer), (64, 64), "
+                                        f"rep {cfg.n_heads // cfg.n_kv_heads}",
+            "layer0_cache_check": check, "ok": ok, "card": smi}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"vlm decode: {readings}; flash_decode "
+                             f"{run['flash_decode_launches']} launches in "
+                             f"{vd['steps']} decode_steps, {fd_check} in the "
+                             f"check (expected {L} each); cache check "
+                             f"{check}")
+    del params, model, data, batch, more
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"path": "vlm_decode", "launches": run["flash_decode_launches"],
+            "launches_per_decode_step":
+                run["flash_decode_launches_per_decode_step"],
+            "decode_check_launches": sum(
+                readings["flash_decode_launches"].values()),
+            "max_abs_err": check["max_err"], "reading": check["reading"],
+            "checked_on": "vlm_decode's layer-0 cache, group size 7"}
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -4180,18 +4637,26 @@ def main() -> int:
     # a row of 32768 on one kv head: its unit is shared by more CTAs than
     # one pass of the merge stages, so the merge runs in several passes
     cases.append(("long-row", 2, 8, 1, 128, 128, 32768))
+    # the shapes of the encoder-decoder and VLM decodes first: internvl's
+    # GQA group of 7 is the first on the card that is no power of two
     checks = []
+    dims = ("B", "H", "K", "dk", "dv", "S")
+    for i, (label, (shape, _, full)) in enumerate(FD_MODEL_TIMING.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            checks.append((label, *(shape[x] for x in dims), dtype, 50 + i,
+                           full))
     for i, (label, B, H, K, dk, dv, S) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
-            checks.append((label, B, H, K, dk, dv, S, dtype, 10 + i))
+            checks.append((label, B, H, K, dk, dv, S, dtype, 10 + i, False))
     sv = SERVE_SHAPE
     checks.append(("serving", sv["B"], sv["H"], sv["K"], sv["dk"], sv["dv"],
-                   sv["S"], torch.bfloat16, 20))
+                   sv["S"], torch.bfloat16, 20, False))
     checks.append(("ragged-S1000", sv["B"], sv["H"], sv["K"], sv["dk"],
-                   sv["dv"], 1000, torch.bfloat16, 21))
+                   sv["dv"], 1000, torch.bfloat16, 21, False))
     results = []
-    for label, B, H, K, dk, dv, S, dtype, seed in checks:
-        q, k, v, kp, vp, lengths = make_case(B, H, K, dk, dv, S, dtype, seed)
+    for label, B, H, K, dk, dv, S, dtype, seed, full in checks:
+        q, k, v, kp, vp, lengths = make_case(B, H, K, dk, dv, S, dtype, seed,
+                                             full)
         got = decode_attn(q, kp, vp, lengths)
         again = decode_attn(q, kp, vp, lengths)
         want = decode_attention_ref(q, k, v, lengths)
@@ -4211,7 +4676,9 @@ def main() -> int:
         ok = reading <= 1 and same and (label != "long-row"
                                         or ctas_of_unit > chunk)
         results.append({"case": label, "dtype": str(dtype).split(".")[-1],
-                        "shape": [B, H, K, dk, dv, S], "max_err": err,
+                        "shape": [B, H, K, dk, dv, S],
+                        "lengths": "all S" if full else "ragged, 1 and S",
+                        "max_err": err,
                         "reading": reading, "bitwise_repeat": same,
                         "grid_ctas": n_ctas, "most_ctas_of_a_unit":
                         ctas_of_unit, "merge_pass_partials": chunk,
@@ -4230,6 +4697,11 @@ def main() -> int:
                                decode_attention_ref, hbm_bytes, hbm,
                                bf16_peak)
                for name, (shape, n_sets) in FD_TIMING.items()}
+    model_timings = {name: fd_timing(name, shape, n_sets, decode_attn,
+                                     decode_attention_ref, hbm_bytes, hbm,
+                                     bf16_peak, full)
+                     for name, (shape, n_sets, full)
+                     in FD_MODEL_TIMING.items()}
     planted = {}
     for name, (shape, _) in FD_TIMING.items():
         B, H, K, dk, dv, S = (shape[x] for x in ("B", "H", "K", "dk", "dv",
@@ -4242,7 +4714,7 @@ def main() -> int:
     bps = fd._blocks_per_sm(0, 1, sv["dk"], sv["dv"], sv["B"])
     emit({"phase": "kernels", "checks": results, "tol": FD_TOL_TEXT,
           "graph_replay": graph, "timings": timings,
-          "planted_faults": planted,
+          "model_timings": model_timings, "planted_faults": planted,
           "schedule": {"span": fd.SPAN, "row_tile": fd.ROW_TILE,
                        "blocks_per_sm": bps,
                        "grid_ctas": fd.grid_ctas(
@@ -4572,12 +5044,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard = shard_phase(smi)
 
+    # ------------------------------------- 29-32. whisper and VLM phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = whisper_phases(smi)
+    vlm = vlm_phases(smi)
+
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "flash_decode", "route": "cuda", "source": KERNEL_SRC,
         "replaces": TPU_SRC, "launches": launches + shard["flash_decode"][
-            "launches"],
+            "launches"] + whisper["launches"] + vlm["launches"],
         "max_abs_err": max(r["max_err"] for r in results),
         "ms": fd_serve["kernel_ms"], "plain_ms": fd_serve["plain_ms"],
         "bound_ms": fd_serve["bound_ms"], "bound_by": fd_serve["bound_by"],
@@ -4586,8 +5064,14 @@ def main() -> int:
         "launches_per_decode_step": launches / calls,
         "hybrid": hybrid["flash_decode"], "moe": moe_readings["flash_decode"],
         "deepseek": ds["flash_decode"], "shard": shard["flash_decode"],
+        "whisper": whisper, "vlm": vlm,
         "launches_by_path": {"serve": launches,
-                             "shard": shard["flash_decode"]["launches"]},
+                             "shard": shard["flash_decode"]["launches"],
+                             "whisper_decode": whisper["launches"],
+                             "vlm_decode": vlm["launches"]},
+        "model_timings": {name: {x: model_timings[name][x] for x in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "share_of_bound")} for name in model_timings},
         "long": {x: timings["long"][x] for x in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
             "library_ms", "share_of_bound")}}, {

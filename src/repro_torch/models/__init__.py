@@ -1,3 +1,4 @@
-from repro_torch.models.transformer import LM, SSMLM, HybridLM, build_model
+from repro_torch.models.transformer import (LM, SSMLM, EncDecLM, HybridLM,
+                                           build_model)
 
-__all__ = ["LM", "SSMLM", "HybridLM", "build_model"]
+__all__ = ["LM", "SSMLM", "HybridLM", "EncDecLM", "build_model"]

@@ -11,6 +11,11 @@ plain PyTorch: the reference computes it outside any Pallas kernel. Layouts
 are the reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo``
 (H, hd, d), caches (B, S, K, hd).
 
+Whisper's cross-attention keeps an ``init_gqa`` tree: ``cross_attention``
+runs the decoder's full sequence against the encoder output through the
+same non-causal ``flash_attention``, and ``cross_decode`` one token against
+the whole cross cache through ``decode_attn``.
+
 MLA (latent-compressed attention, arXiv:2412.19437) runs its expanded form
 through the same ``flash_attention`` for train and prefill, and its
 *absorbed* form for decode, so the cache stays (kv_lora + rope) wide per
@@ -448,6 +453,51 @@ def gqa_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *, positions,
     elif tp_active(pctx):
         k, v = _cache_block(k, pctx), _cache_block(v, pctx)
     return out, {"k": k, "v": v}
+
+
+# ------------------------------------------------- cross attention (whisper)
+def init_cross_attention(gen, cfg: ArchConfig, d: int, device) -> dict:
+    """An ``init_gqa`` tree: ``wq``/``wk``/``wv``/``wo`` (and ``bq``/``bk``/
+    ``bv`` with ``attn_bias``)."""
+    return init_gqa(gen, cfg, d, device)
+
+
+def cross_q(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The cross-attention query of the decoder stream x (B, S, d): (B, S,
+    H, hd), no rotation."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    return q + p["bq"] if cfg.attn_bias else q
+
+
+def cross_kv(p: dict, enc: torch.Tensor, cfg: ArchConfig) -> tuple:
+    """The cross-attention keys and values of the encoder output enc (B,
+    S_enc, d): each (B, S_enc, K, hd)."""
+    k = torch.einsum("bsd,dhk->bshk", enc, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc, p["wv"])
+    if cfg.attn_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
+
+
+def cross_attention(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                    kv: tuple) -> torch.Tensor:
+    """The decoder's full-sequence attention to the encoder: every query
+    position sees all of ``kv`` (``flash_attention(causal=False)``, padded
+    keys masked where S_enc is no multiple of the chunk)."""
+    out = flash_attention(cross_q(p, x, cfg), *kv, causal=False,
+                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                 kv: tuple) -> torch.Tensor:
+    """One decoder token x (B, 1, d) against the whole encoder cache ``kv``
+    (each (B, S_enc, K, hd)), never written after prefill: through
+    ``decode_attn`` at ``length = S_enc`` (the kernel on CUDA tensors)."""
+    q = cross_q(p, x, cfg)
+    k, v = kv
+    out = decode_attn(q[:, 0], k.contiguous(), v.contiguous(), k.shape[1])
+    return torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
 
 
 # ------------------------------------------------------------------------ MLA

@@ -1,9 +1,8 @@
-"""Decoder-only dense and MoE LM (with DeepSeek's MLA attention and MTP
-head), the Mamba-2 LM and the Zamba2-style hybrid: training (``loss_fn``),
-prefill and decode.
+"""Decoder-only dense, MoE and VLM LM (with DeepSeek's MLA attention and MTP
+head), the Mamba-2 LM, the Zamba2-style hybrid and the Whisper-style
+encoder-decoder: training (``loss_fn``), prefill and decode.
 
-Counterpart of the dense, MoE, MLA/MTP, SSM and hybrid branches of
-``repro.models.transformer``.
+Counterpart of ``repro.models.transformer``, every family it builds.
 The parameter tree keeps the reference's layout, with every block parameter
 stacked on a leading layer axis (``dense_stack.attn.wq`` is (L, d, H, hd),
 ``stack.ssm.wx`` is (L, d, d_inner)), so JAX parameters transfer one to one
@@ -34,16 +33,6 @@ from repro_torch.parallel.sharding import Sharding, is_spec, param_specs
 from repro_torch.parallel.tensor_parallel import gather_leaf
 
 
-def _unported(cfg: ArchConfig) -> str | None:
-    """Why ``cfg`` cannot run on the port yet (and which ROADMAP item ports
-    it), or None when its decode path is ported."""
-    if cfg.family == "audio" or cfg.encdec is not None:
-        return "encoder-decoder models (ROADMAP.md queue 1 item 5)"
-    if cfg.family == "vlm" or cfg.vision is not None:
-        return "the VLM patch prefix (ROADMAP.md queue 1 item 5)"
-    return None
-
-
 def _is_hybrid(cfg: ArchConfig) -> bool:
     return cfg.family == "hybrid" or bool(cfg.hybrid_attn_every)
 
@@ -54,15 +43,24 @@ def _refuse_hybrid(cfg: ArchConfig) -> None:
                          "HybridLM (or build_model)")
 
 
-def _refuse_sharded(cfg: ArchConfig, pctx) -> None:
-    """Mamba-2 and hybrid models run on whole parameters only: the
-    reference shards ``wB``/``wC`` over ``d_state`` under a ``model`` axis,
-    so the SSD contraction needs its own sum (ROADMAP.md queue 1 item 6b)."""
+def _refuse_encdec(cfg: ArchConfig) -> None:
+    if cfg.encdec is not None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder config: build it "
+                         "with EncDecLM (or build_model)")
+
+
+def _refuse_sharded(cfg: ArchConfig, pctx,
+                    what: str = "Mamba-2/hybrid models") -> None:
+    """Some families run on whole parameters only (ROADMAP.md queue 1 item
+    6b): Mamba-2 and hybrid models, as the reference shards ``wB``/``wC``
+    over ``d_state`` under a ``model`` axis, so the SSD contraction needs
+    its own sum; the encoder-decoder and the VLM patch prefix, whose
+    sharded paths no slice has taken to the card yet."""
     if pctx is not None and pctx.sharded:
         raise NotImplementedError(
-            f"{cfg.name}: Mamba-2/hybrid models on a sharded mesh (a "
-            f"'{pctx.tp_axis}' axis) are not ported to repro_torch yet "
-            "(ROADMAP.md queue 1 item 6b)")
+            f"{cfg.name}: {what} on a sharded mesh (a '{pctx.tp_axis}' "
+            "axis) are not ported to repro_torch yet (ROADMAP.md queue 1 "
+            "item 6b)")
 
 
 # ---------------------------------------------------------------- sharding
@@ -164,9 +162,9 @@ def init_block(gen, cfg: ArchConfig, kind: str, device) -> dict:
     if kind == "ssm":
         return {"ln1": init_norm(cfg, d, device),
                 "ssm": ssm_lib.init_mamba2(gen, cfg, device)}
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
-    return {
+    if kind not in ("dense", "moe", "encoder", "decoder"):
+        raise ValueError(kind)
+    p = {
         "ln1": init_norm(cfg, d, device),
         "attn": (attn.init_mla(gen, cfg, d, device) if cfg.mla is not None
                  else attn.init_gqa(gen, cfg, d, device)),
@@ -174,6 +172,10 @@ def init_block(gen, cfg: ArchConfig, kind: str, device) -> dict:
         "ffn": (moe_lib.init_moe(gen, cfg, d, device) if kind == "moe"
                 else init_mlp(gen, cfg, d, cfg.d_ff, device)),
     }
+    if kind == "decoder":
+        p["ln_x"] = init_norm(cfg, d, device)
+        p["xattn"] = attn.init_cross_attention(gen, cfg, d, device)
+    return p
 
 
 def _ffn(p, h, cfg, kind, pctx):
@@ -183,10 +185,13 @@ def _ffn(p, h, cfg, kind, pctx):
 
 
 def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
-                  pctx=None):
-    """Full-sequence causal block. Returns (x, cache); for ``kind="ssm"``
-    the cache is the Mamba-2 state ``{"conv", "ssm"}``, for an MLA config
-    ``{"c_kv", "k_rope"}``. ``pctx`` reaches the MoE layer (expert
+                  pctx=None, causal: bool = True, cross=None):
+    """Full-sequence block (self-attention ``causal`` or not). Returns (x,
+    cache); for ``kind="ssm"`` the cache is the Mamba-2 state ``{"conv",
+    "ssm"}``, for an MLA config ``{"c_kv", "k_rope"}``. A ``"decoder"``
+    block then attends to the encoder output ``cross`` (B, S_enc, d), its
+    cross K/V computed here from it, so a recompute in backward computes
+    them again. ``pctx`` reaches the MoE layer (expert
     parallelism over its mesh's ``data`` axis) and, on a sharded mesh,
     every layer: ``p`` holds this rank's blocks (``param_specs``), the
     layer's ``data`` shards are gathered at its entry and attention and
@@ -203,14 +208,21 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
                                       pctx=pctx, specs=a_specs)
     else:
         y, cache = attn.gqa_attention(p["attn"], h, cfg, positions=positions,
-                                      pctx=pctx, specs=a_specs)
+                                      causal=causal, pctx=pctx, specs=a_specs)
     x = x + y
+    if kind == "decoder":
+        hx = apply_norm(p["ln_x"], x, cfg)
+        kv = attn.cross_kv(p["xattn"], cross, cfg)
+        x = x + attn.cross_attention(p["xattn"], hx, cfg, kv)
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, pctx), cache
 
 
 def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos,
-                 pctx=None):
+                 pctx=None, cross_kv=None):
+    """One token per row through one block; a ``"decoder"`` block attends
+    to its layer's encoder cache ``cross_kv`` (k, v) after its
+    self-attention."""
     p, specs = _unfsdp(p, cfg, pctx, kind)
     x = _hint(x, cfg, pctx)
     h = apply_norm(p["ln1"], x, cfg)
@@ -224,6 +236,9 @@ def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos,
                                    specs=None if specs is None
                                    else specs["attn"])
     x = x + y
+    if kind == "decoder":
+        hx = apply_norm(p["ln_x"], x, cfg)
+        x = x + attn.cross_decode(p["xattn"], hx, cfg, cross_kv)
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, pctx), cache
 
@@ -249,9 +264,11 @@ def _stack_trees(trees: list):
     return tree_util.unflatten(trees[0], [torch.stack(c) for c in cols])
 
 
-def stack_forward(stack, x, cfg, kind, *, positions, pctx=None):
-    """Run the stacked blocks layer by layer, each recomputed in backward;
-    returns (x, caches), each cache leaf stacked on a leading layer axis:
+def stack_forward(stack, x, cfg, kind, *, positions, pctx=None,
+                  causal: bool = True, cross=None):
+    """Run the stacked blocks layer by layer, each recomputed in backward
+    (a decoder block's cross K/V from ``cross`` with it); returns (x,
+    caches), each cache leaf stacked on a leading layer axis:
     k/v (L, B, S, K, hd) for attention, c_kv (L, B, S, kv_lora) and k_rope
     (L, B, S, rope) for MLA; for ``kind="ssm"`` the states
     ``{"conv": (sx, sB, sC) each (L, B, W-1, C), "ssm": (L, B, h, p, n)}``."""
@@ -260,30 +277,35 @@ def stack_forward(stack, x, cfg, kind, *, positions, pctx=None):
     for i in range(n):
         layer_p = tree_util.tree_map(lambda t: t[i], stack)
 
-        def body(carry, layer_p=layer_p):
+        def body(carry, enc, layer_p=layer_p):
             return block_forward(layer_p, carry, cfg, kind,
-                                 positions=positions, pctx=pctx)
+                                 positions=positions, pctx=pctx,
+                                 causal=causal, cross=enc)
 
         if torch.is_grad_enabled():
-            x, cache = checkpoint(body, x, use_reentrant=False)
+            x, cache = checkpoint(body, x, cross, use_reentrant=False)
         else:
-            x, cache = body(x)
+            x, cache = body(x, cross)
         caches.append(cache)
     return x, _stack_trees(caches)
 
 
-def stack_decode(stack, x, cfg, kind, *, caches, pos, pctx=None):
+def stack_decode(stack, x, cfg, kind, *, caches, pos, pctx=None,
+                 cross_kv=None):
     """Run the stacked blocks layer by layer over ``caches`` (leaves with a
     leading layer axis), updated IN PLACE (the reference's scan returns new
     caches instead): attention layers write their new KV into
     ``caches[...][i]`` (MLA layers their latent and rope key); SSM layers'
-    new conv and SSM states are copied into layer i's slice."""
+    new conv and SSM states are copied into layer i's slice. Decoder
+    layers read layer i of ``cross_kv`` ((k, v), each (L, B, S_enc, K,
+    hd)) and write nothing there."""
     n = stack["ln1"]["scale"].shape[0]
     for i in range(n):
         layer_p = tree_util.tree_map(lambda t: t[i], stack)
         cache = tree_util.tree_map(lambda t: t[i], caches)
+        ckv = None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i])
         x, new = block_decode(layer_p, x, cfg, kind, pos=pos, cache=cache,
-                              pctx=pctx)
+                              pctx=pctx, cross_kv=ckv)
         if kind == "ssm":
             for dst, src in zip(tree_util.leaves(cache),
                                 tree_util.leaves(new)):
@@ -294,8 +316,12 @@ def stack_decode(stack, x, cfg, kind, *, caches, pos, pctx=None):
 # ------------------------------------------------------------------ LM model
 @dataclasses.dataclass(frozen=True)
 class LM:
-    """Decoder-only LM, dense or MoE: ``init``, ``loss_fn``, ``prefill``,
-    ``init_cache`` and ``decode_step``. An MoE config's first
+    """Decoder-only LM, dense, MoE or VLM: ``init``, ``loss_fn``,
+    ``prefill``, ``init_cache`` and ``decode_step``. A VLM config
+    (``cfg.vision``) puts ``batch["patches"]`` (B, n_patches, d), rounded
+    to the model dtype, before the token embeddings: positions run over
+    both, the loss reads the token positions only, and a decode step's
+    ``pos`` counts the patches. An MoE config's first
     ``n_dense_layers`` blocks form ``dense_stack`` and the rest
     ``moe_stack`` (an empty stack is None, as in the reference); caches
     are keyed ``"dense"`` and ``"moe"`` likewise. With ``cfg.mla`` every
@@ -305,11 +331,8 @@ class LM:
     cfg: ArchConfig
 
     def __post_init__(self):
-        why = _unported(self.cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: {why} not ported to repro_torch yet")
         _refuse_hybrid(self.cfg)
+        _refuse_encdec(self.cfg)
         if self.cfg.ssm is not None:
             raise ValueError(f"{self.cfg.name} is a Mamba-2 config: build it "
                              "with SSMLM (or build_model)")
@@ -347,10 +370,20 @@ class LM:
     def _mtp_kind(self) -> str:
         return "moe" if self.cfg.moe is not None else "dense"
 
+    def _refuse_sharded_vlm(self, pctx) -> None:
+        if self.cfg.vision is not None:
+            _refuse_sharded(self.cfg, pctx, "the VLM patch prefix")
+
+    @property
+    def _n_patches(self) -> int:
+        return 0 if self.cfg.vision is None else self.cfg.vision.n_patches
+
     # -------- shared trunk
     def _inputs(self, embed: dict, batch: dict):
         cfg = self.cfg
         x = embed_tokens(embed, batch["tokens"], cfg)
+        if cfg.vision is not None:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         B, S = x.shape[0], x.shape[1]
         positions = torch.arange(S, device=x.device).expand(B, S)
         if cfg.pos_embedding == "learned":
@@ -377,9 +410,11 @@ class LM:
         mesh ``params`` are this rank's blocks and ``batch`` its rows; the
         loss is the mean over those rows, the same on its ``model``
         ranks."""
+        self._refuse_sharded_vlm(pctx)
         embed, _ = _gathered_top(params, self.cfg, pctx)
         x, positions = self._inputs(embed, batch)
         h, _ = self._trunk(params, x, positions, pctx)
+        h = h[:, self._n_patches:]
         labels = batch["labels"]
         total = lm_loss(embed, h[:, :-1], labels[:, 1:], self.cfg)
         if self.cfg.mtp_depth:
@@ -390,8 +425,11 @@ class LM:
         """DeepSeek-V3 MTP (depth 1): predict token t+2 from the normed
         final hidden state h_t joined with the normed embedding of token
         t+1, through one block and the shared head. The block is not
-        recomputed in backward, as in the reference."""
+        recomputed in backward, as in the reference. A VLM's ``h`` is cut
+        by the patch count here as well, as the reference cuts it (no
+        config has both a patch prefix and an MTP head)."""
         cfg = self.cfg
+        h = h[:, self._n_patches:]
         embed, mtp = _gathered_top(params, cfg, pctx)
         e_next = embed_tokens(embed, batch["tokens"][:, 1:], cfg)
         hh = apply_norm(mtp["ln_h"], h[:, :-1], cfg)
@@ -410,7 +448,9 @@ class LM:
         S, K, hd), a key for each non-empty stack (MLA: ``{"c_kv",
         "k_rope"}`` as :meth:`init_cache` shapes them). On a sharded mesh
         the rows are this rank's and the caches its blocks, laid out as
-        ``cache_specs`` says."""
+        ``cache_specs`` says. A VLM's caches hold the patch positions
+        first."""
+        self._refuse_sharded_vlm(pctx)
         embed, _ = _gathered_top(params, self.cfg, pctx)
         x, positions = self._inputs(embed, batch)
         h, caches = self._trunk(params, x, positions, pctx)
@@ -423,6 +463,7 @@ class LM:
         in place; on a sharded mesh, this rank's rows and cache blocks, as
         :meth:`prefill` leaves them."""
         cfg = self.cfg
+        self._refuse_sharded_vlm(pctx)
         embed, _ = _gathered_top(params, cfg, pctx)
         tok = batch["token"][:, None]
         pos = batch["pos"]
@@ -474,11 +515,8 @@ class SSMLM:
     cfg: ArchConfig
 
     def __post_init__(self):
-        why = _unported(self.cfg)
-        if why is not None or self.cfg.ssm is None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: {why or 'not a Mamba-2 config'}; not "
-                "ported to repro_torch yet")
+        if self.cfg.ssm is None:
+            raise ValueError(f"{self.cfg.name} is not a Mamba-2 config")
         _refuse_hybrid(self.cfg)
 
     def init(self, gen: torch.Generator, device=None) -> dict:
@@ -570,10 +608,6 @@ class HybridLM:
 
     def __post_init__(self):
         cfg = self.cfg
-        why = _unported(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {why} not ported to repro_torch yet")
         if not cfg.hybrid_attn_every or cfg.ssm is None:
             raise ValueError(f"{cfg.name} is not a hybrid Mamba-2 config")
         if cfg.n_layers % cfg.hybrid_attn_every:
@@ -695,13 +729,136 @@ class HybridLM:
                 "attn": {"k": zeros(*kv), "v": zeros(*kv)}}
 
 
+# --------------------------------------------------------------- EncDec model
+@dataclasses.dataclass(frozen=True)
+class EncDecLM:
+    """Whisper-style encoder-decoder; the conv frontend is a stub:
+    precomputed frame embeddings arrive in ``batch["frames"]`` (B, S_enc,
+    d). ``init``, ``loss_fn``, ``prefill``, ``init_cache`` and
+    ``decode_step``, with the reference's tree: ``enc_pos`` (S_enc, d),
+    ``encoder`` and ``decoder`` stacks (a decoder block adds ``ln_x`` and
+    ``xattn``), ``enc_norm`` and ``final_norm``. Whole parameters only
+    (ROADMAP.md queue 1 item 6b)."""
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        if self.cfg.encdec is None:
+            raise ValueError(f"{self.cfg.name} is not an encoder-decoder "
+                             "config")
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        """Random parameters drawn from ``gen`` (a CPU generator, or one on
+        the card), on ``device`` (default cuda; ``"meta"`` gives shapes
+        only)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        e = cfg.encdec
+        return {
+            "embed": init_embedding(gen, cfg, device),
+            "enc_pos": dense_init(gen, (e.encoder_seq, cfg.d_model),
+                                  dtype_of(cfg), device, scale=0.02),
+            "encoder": init_stack(gen, cfg, "encoder", e.n_encoder_layers,
+                                  device),
+            "enc_norm": init_norm(cfg, cfg.d_model, device),
+            "decoder": init_stack(gen, cfg, "decoder", cfg.n_layers, device),
+            "final_norm": init_norm(cfg, cfg.d_model, device),
+        }
+
+    def _encode(self, params: dict, frames):
+        """The normed encoder output (B, S_enc, d): frames rounded to the
+        model dtype plus ``enc_pos``, through the non-causal stack."""
+        cfg = self.cfg
+        x = frames.to(dtype_of(cfg)) + params["enc_pos"]
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x, _ = stack_forward(params["encoder"], x, cfg, "encoder",
+                             positions=positions, causal=False)
+        return apply_norm(params["enc_norm"], x, cfg)
+
+    def _decode_stack(self, params: dict, tokens, enc):
+        """Final-normed decoder states and the self-attention caches; each
+        layer computes its cross K/V from ``enc``."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens, cfg)
+        B, S = x.shape[:2]
+        if cfg.pos_embedding == "learned":
+            x = x + params["embed"]["positions"][:S]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x, caches = stack_forward(params["decoder"], x, cfg, "decoder",
+                                  positions=positions, cross=enc)
+        return apply_norm(params["final_norm"], x, cfg), caches
+
+    def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
+        """Mean next-token cross entropy of ``batch`` (``frames`` (B, S_enc,
+        d); ``tokens``, ``labels`` (B, S) int)."""
+        _refuse_sharded(self.cfg, pctx, "encoder-decoder models")
+        enc = self._encode(params, batch["frames"])
+        h, _ = self._decode_stack(params, batch["tokens"], enc)
+        return lm_loss(params["embed"], h[:, :-1], batch["labels"][:, 1:],
+                       self.cfg)
+
+    def prefill(self, params: dict, batch: dict, pctx=None):
+        """Logits of the last position (B, 1, V) float32 and the caches
+        ``{"self": {"k", "v"} each (L, B, S, K, hd), "cross": (k, v) each
+        (L, B, S_enc, K, hd)}``, the cross K/V computed per layer from the
+        encoder output."""
+        _refuse_sharded(self.cfg, pctx, "encoder-decoder models")
+        cfg = self.cfg
+        enc = self._encode(params, batch["frames"])
+        h, caches = self._decode_stack(params, batch["tokens"], enc)
+        xattn = params["decoder"]["xattn"]
+        kvs = [attn.cross_kv(tree_util.tree_map(lambda t: t[i], xattn), enc,
+                             cfg) for i in range(xattn["wk"].shape[0])]
+        cross = (torch.stack([k for k, _ in kvs]),
+                 torch.stack([v for _, v in kvs]))
+        return logits(params["embed"], h[:, -1:, :], cfg), {"self": caches,
+                                                           "cross": cross}
+
+    def decode_step(self, params: dict, caches: dict, batch: dict,
+                    pctx=None):
+        """One token per row. ``batch``: ``token`` (B,) and ``pos`` (scalar or
+        (B,)). Returns (logits (B,1,V) float32, caches): the self caches
+        updated in place, the cross caches read whole (``decode_attn`` at
+        length S_enc) and left as they are."""
+        _refuse_sharded(self.cfg, pctx, "encoder-decoder models")
+        cfg = self.cfg
+        embed = params["embed"]
+        x = embed_tokens(embed, batch["token"][:, None], cfg)
+        pos = batch["pos"]
+        if cfg.pos_embedding == "learned":
+            pos_b = attn._pos_vec(pos, x.shape[0], x.device)
+            x = x + embed["positions"][pos_b][:, None, :]
+        x, _ = stack_decode(params["decoder"], x, cfg, "decoder",
+                            caches=caches["self"], pos=pos,
+                            cross_kv=caches["cross"])
+        h = apply_norm(params["final_norm"], x, cfg)
+        return logits(embed, h, cfg), caches
+
+    def init_cache(self, batch_size: int, seq_len: int, device=None) -> dict:
+        """Zero caches shaped as :meth:`prefill` returns them, the self
+        caches for a ``seq_len`` window."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        hd, K, L = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_layers
+        dt = dtype_of(cfg)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        kv = (L, batch_size, seq_len, K, hd)
+        xkv = (L, batch_size, cfg.encdec.encoder_seq, K, hd)
+        return {"self": {"k": zeros(*kv), "v": zeros(*kv)},
+                "cross": (zeros(*xkv), zeros(*xkv))}
+
+
 def build_model(cfg: ArchConfig):
     """The port's model for ``cfg``: :class:`SSMLM` for the ``ssm`` family,
-    :class:`HybridLM` for ``hybrid``, :class:`LM` otherwise; raises
-    ``NotImplementedError`` for the families not ported yet, naming the
-    ROADMAP item that ports each."""
+    :class:`HybridLM` for ``hybrid``, :class:`EncDecLM` for ``audio``,
+    :class:`LM` otherwise (dense, MoE, VLM)."""
     if cfg.family == "ssm":
         return SSMLM(cfg)
     if cfg.family == "hybrid":
         return HybridLM(cfg)
+    if cfg.family == "audio":
+        return EncDecLM(cfg)
     return LM(cfg)

@@ -47,6 +47,15 @@ class Request:
 class ServeEngine:
     def __init__(self, model, params, *, slots: int = 4, window: int = 256,
                  greedy: bool = True, device=None):
+        cfg = getattr(model, "cfg", None)
+        if cfg is not None and (cfg.encdec is not None
+                                or cfg.vision is not None):
+            # prompts are teacher-forced through decode_step, which takes no
+            # frames or patches: whisper would attend to a zero cross cache
+            raise NotImplementedError(
+                f"{cfg.name}: serving needs the encoder's frames or the "
+                "image's patches, which the engine cannot take yet "
+                "(ROADMAP.md queue 1 item 5b)")
         self.device = resolve_device(device)
         self.model = model
         self.params = params

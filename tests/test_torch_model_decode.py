@@ -163,9 +163,33 @@ def test_bridge_names_and_rejects_bad_leaves():
     pytest.param(a, i, id=a) for a, i in [("internvl2-1b", 5),
                                          ("whisper-small", 5)]])
 def test_unported_families_raise_naming_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}\\)"):
-        build_model(reduced(get(arch)))
+    """The last families of ROADMAP.md queue 1 item 5 are ported:
+    ``build_model`` gives internvl2-1b an ``LM`` (the patch prefix) and
+    whisper-small an ``EncDecLM``, and the loss, prefill and a decode step
+    run, each finite (tests/test_torch_vlm.py and test_torch_encdec.py hold
+    them against the reference)."""
+    from repro_torch.models import EncDecLM
+    cfg = reduced(get(arch), dtype="float32")
+    model = build_model(cfg)
+    assert isinstance(model, EncDecLM if arch == "whisper-small" else LM)
+    p = model.init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.vision is not None:
+        batch["patches"] = torch.randn((2, cfg.vision.n_patches,
+                                        cfg.d_model), generator=g)
+    if cfg.encdec is not None:
+        batch["frames"] = torch.randn((2, cfg.encdec.encoder_seq,
+                                       cfg.d_model), generator=g)
+    loss = model.loss_fn(p, batch)
+    lg, _ = model.prefill(p, {k: v for k, v in batch.items()
+                              if k != "labels"})
+    lg2, _ = model.decode_step(p, model.init_cache(2, 32, device="cpu"),
+                               {"token": toks[:, 0], "pos": torch.tensor(0)})
+    assert lg.shape == lg2.shape == (2, 1, cfg.vocab_size)
+    assert torch.isfinite(loss) and torch.isfinite(lg).all()
+    assert torch.isfinite(lg2).all()
 
 
 def test_deepseek_v3_builds_and_runs():

@@ -5,7 +5,8 @@
 :mod:`repro_torch.parallel.sharding` equal ``repro.parallel.sharding``'s
 exactly, entry for entry, on the (2, 2, 2) test mesh and the reference's
 production meshes (16, 16) and (2, 16, 16), for every config the port's
-``build_model`` builds (dense, MoE with MLA and MTP, Mamba-2, hybrid). The
+``build_model`` builds (dense, MoE with MLA and MTP, Mamba-2, hybrid,
+encoder-decoder, VLM). The
 port's trees come from meta init, the reference's from
 ``jax.eval_shape``; both meshes are abstract (no devices, no processes).
 Then the layout: ``Sharding``'s blocks tile every leaf exactly as
@@ -52,9 +53,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"2x2x2": ((2, 2, 2), ("pod", "data", "model")),
           "16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
-#: build_model refuses these (ROADMAP.md queue 1 item 5)
-UNPORTED = {"whisper-small", "internvl2-1b"}
-ARCHS = [a for a in ALL_ARCHS + EXTRA_ARCHS if a not in UNPORTED]
+ARCHS = ALL_ARCHS + EXTRA_ARCHS
 
 
 def _ctxs(mesh):
@@ -291,8 +290,9 @@ def test_addr_of_names_the_references_replicas():
 
 def test_unported_sharded_paths_raise_naming_item_6b():
     """What sharding leaves to ROADMAP.md queue 1 item 6b refuses with
-    NotImplementedError: sequence parallelism, Mamba-2 and hybrid models
-    on a sharded mesh, MLA's absorbed decode with a model axis."""
+    NotImplementedError: sequence parallelism, Mamba-2, hybrid,
+    encoder-decoder and VLM models on a sharded mesh, MLA's absorbed
+    decode with a model axis."""
     from repro_torch.config import reduced
     from repro_torch.models.attention import mla_decode
     from repro_torch.parallel.ctx import ParallelCtx
@@ -308,6 +308,22 @@ def test_unported_sharded_paths_raise_naming_item_6b():
             model.loss_fn(params, {"tokens": toks, "labels": toks}, ctx)
         with pytest.raises(NotImplementedError, match="item 6b"):
             model.prefill(params, {"tokens": toks}, ctx)
+    for arch in ("whisper-small", "internvl2-1b"):
+        cfg = reduced(get(arch))
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        extra = ({"frames": torch.zeros((2, cfg.encdec.encoder_seq,
+                                         cfg.d_model))} if cfg.encdec
+                 else {"patches": torch.zeros((2, cfg.vision.n_patches,
+                                               cfg.d_model))})
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            model.loss_fn(params, {"tokens": toks, "labels": toks, **extra},
+                          ctx)
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            model.prefill(params, {"tokens": toks, **extra}, ctx)
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            model.decode_step(params, model.init_cache(2, 8, device="cpu"),
+                              {"token": toks[:, 0], "pos": 0}, ctx)
     cfg = reduced(get("deepseek-v3-671b"))
     with pytest.raises(NotImplementedError, match="item 6b"):
         mla_decode({}, torch.zeros((1, 1, cfg.d_model)), cfg, {}, 0, ctx)
