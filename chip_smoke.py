@@ -334,6 +334,28 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             tokens, each prefilled alone into a 256 + 1,024 window, 32
             greedy decode_steps: 24 flash_decode launches a decode_step
             (group size 7); the kernel on the layer-0 cache at FD_TOL.
+33. exanet_model  the port's copy of the ExaNet interconnect model prints
+            its own figures beside the paper's (EXANET_PAPER): Table 2's
+            0-byte MPI latency per path, the 4 MB osu_bw link utilisation
+            of a 16G and a 10G link and the section 4.7 accelerator's
+            allreduce gain at 16-128 ranks. Simulated microseconds of the
+            prototype, not readings of this card; the CPU tests hold them
+            equal to the reference's.
+34. exanet_sim  the simulator's compiled replays through the torch scan
+            lane (get_scan_engine("torch"), float64 on the card) against
+            the numpy lane (EXANET): (a) a binomial broadcast and a
+            recursive-doubling allreduce at 4,096 ranks (one per MPSoC, a
+            scaled torus) over the 23 sizes 1 B - 4 MB, one
+            run_schedule_many each, timed in turns numpy, torch, torch,
+            numpy (wall seconds per grid, sends/s); (b) run_program_
+            scenarios of cg_iteration(64, 70000, 30.0) over 1,024 seeded
+            compute and byte scale columns, check=8 against the
+            interpreter in both lanes, timed in turns, then one torch
+            sweep under torch.profiler (device-busy share, copies). Gates:
+            latencies and clocks of both lanes within 1e-9 relative in
+            (a) and in every column of (b), and scans ran on the torch
+            lane (the broadcast has no contending acquires at one rank per
+            MPSoC, so it runs none on either lane).
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -630,6 +652,26 @@ WHISPER_DECODE = dict(batch=8, prompt=(16, 63), window=448, steps=32,
 #: 32 greedy decode_steps
 VLM_DECODE = dict(check_len=512, batch=8, prompt=(64, 511), window=1280,
                   steps=32)
+#: the simulator's phase. (a) the reference's scan-lane comparison
+#: (benchmarks/collectives_sweep.py:engine_rows): a binomial broadcast and a
+#: recursive-doubling allreduce at 4,096 ranks, one per MPSoC, each over the
+#: 23 OSU sizes 1 B - 4 MB in one batched replay; (b) one scenario sweep of
+#: cg_iteration at 64 ranks over 1,024 seeded compute and byte scale
+#: columns (as tests/test_batch_engine.py draws them), 8 of them checked
+#: against the interpreter. Both lanes' replays agree within ``tol``
+EXANET = dict(ranks=4096, sizes=tuple(1 << i for i in range(23)),
+              min_wall_s=1.0, prog=(64, 70000, 30.0), columns=1024,
+              check=8, seed=27, tol=1e-9)
+#: the paper's figures the model is held to: Table 2's 0-byte MPI latency
+#: per path (us), section 6.1.2's link utilisation at 4 MB and section
+#: 6.1.5's accelerator gain per rank count (tests/test_exanet_paper_
+#: validation.py pins the model to these)
+EXANET_PAPER = {"table2_us": {"intra_fpga": 1.17, "intra_qfdb_sh": 1.293,
+                              "mezz_sh": 1.579, "mezz_mh(2)": 2.0,
+                              "mezz_mh(3)": 2.111,
+                              "inter_mezz(3,1,2)": 2.555},
+                "link_utilisation": {"16G": 0.819, "10G": 0.643},
+                "accel_gain": {16: 0.834, 32: 0.862, 64: 0.871, 128: 0.879}}
 
 T_START = time.perf_counter()
 
@@ -4568,6 +4610,181 @@ def vlm_phases(smi: str) -> dict:
             "checked_on": "vlm_decode's layer-0 cache, group size 7"}
 
 
+def _max_rel(got, want) -> float:
+    """Largest |got - want| / |want| over two arrays (0 where both are 0)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return float(np.max(np.where(diff == 0, 0.0, diff / np.abs(want))))
+
+
+def _lane_turns(fn, min_wall_s: float) -> dict:
+    """Seconds per call of ``fn(lane)`` for the numpy and torch lanes, in
+    the turns numpy, torch, torch, numpy (each turn repeats the call until
+    ``min_wall_s`` has passed); the faster turn of each lane, and the last
+    result of each."""
+    secs = {"numpy": [], "torch": []}
+    out = {}
+    for lane in ("numpy", "torch", "torch", "numpy"):
+        runs, t0 = 0, time.perf_counter()
+        while True:
+            out[lane] = fn(lane)
+            runs += 1
+            wall = time.perf_counter() - t0
+            if wall >= min_wall_s:
+                break
+        secs[lane].append(wall / runs)
+    return {"s": {k: min(v) for k, v in secs.items()},
+            "turns_s": secs, "out": out}
+
+
+def exanet_sim_phase(smi: str, acts, device: str = "cuda") -> dict:
+    """Phases 33-34: the ExaNet simulator's model figures, then its compiled
+    replays through the torch scan lane on the card against the numpy
+    lane (EXANET)."""
+    from repro_torch.core.exanet import scan_engine as se
+    from repro_torch.core.exanet.allreduce_accel import (
+        accel_allreduce_latency)
+    from repro_torch.core.exanet.mpi import ExanetMPI
+    from repro_torch.core.exanet.params import DEFAULT, scaled_params
+    from repro_torch.core.exanet.schedules import (BinomialBroadcast,
+                                                   RecursiveDoublingAllreduce)
+    from repro_torch.core.program import cg_iteration
+
+    t_phase = time.perf_counter()
+    eng = se.get_scan_engine("torch")
+    if eng.device.type != device:
+        raise AssertionError(f"the torch scan lane runs on {eng.device}")
+
+    # -- 33. the model's figures: simulated microseconds, not card readings
+    mpi = ExanetMPI()
+    paths = mpi.topo.table1_paths()
+    table2 = {name: {"simulated_us": mpi.net.mpi_latency(
+                  0, mpi.topo.route(*paths[name])), "paper_us": paper}
+              for name, paper in EXANET_PAPER["table2_us"].items()}
+    c = DEFAULT.cores_per_mpsoc
+    util = {"16G": mpi.osu_bw(4 << 20, 0, c) / 16.0,
+            "10G": mpi.osu_bw(4 << 20, 0, c * DEFAULT.fpgas_per_qfdb) / 10.0}
+    mpi1 = ExanetMPI(ranks_per_mpsoc=1)
+    gain = {n: max(1 - accel_allreduce_latency(s, n) / mpi1.allreduce_sw(s, n)
+                   for s in (4, 64, 256, 1024, 4096))
+            for n in EXANET_PAPER["accel_gain"]}
+    emit({"phase": "exanet_model",
+          "units": "simulated microseconds and shares of the ExaNeSt "
+                   "prototype's model, not readings of this card",
+          "table2_0B_mpi_latency": table2,
+          "osu_bw_4MB_link_utilisation": {
+              k: {"simulated": v, "paper": EXANET_PAPER["link_utilisation"][k]}
+              for k, v in util.items()},
+          "accel_allreduce_gain": {
+              n: {"simulated": v, "paper": EXANET_PAPER["accel_gain"][n]}
+              for n, v in gain.items()},
+          "accel_gain_max": max(gain.values())})
+
+    # -- 34a. the engine comparison at 4,096 ranks over the size grid
+    n, grid, tol = EXANET["ranks"], EXANET["sizes"], EXANET["tol"]
+    big = ExanetMPI(scaled_params((n - 1) * c + 1), ranks_per_mpsoc=1)
+    rows = {}
+    for coll, sched, sends in (
+            ("bcast", BinomialBroadcast(), n - 1),
+            ("allreduce", RecursiveDoublingAllreduce(),
+             n * (n.bit_length() - 1))):
+        t0 = time.perf_counter()
+        big.run_schedule_many(sched, grid, n)        # compile and bind
+        compile_s = time.perf_counter() - t0
+        calls0 = sum(eng.calls.values())
+        big.run_schedule_many(sched, grid, n, engine="torch")  # masks up
+        calls = sum(eng.calls.values()) - calls0
+        turns = _lane_turns(lambda lane: big.run_schedule_many(
+            sched, grid, n, engine=lane), EXANET["min_wall_s"])
+        got, want = turns["out"]["torch"], turns["out"]["numpy"]
+        rel = max(_max_rel(got.latency_us, want.latency_us),
+                  _max_rel(got.clocks, want.clocks))
+        rows[coll] = {
+            "nranks": n, "grid_sizes": len(grid),
+            "sends_per_grid": sends * len(grid),
+            "compile_and_bind_s": compile_s,
+            "torch_scan_calls_per_grid": calls,
+            "wall_s_per_grid": turns["s"], "turns_s": turns["turns_s"],
+            "sends_per_s": {k: sends * len(grid) / v
+                            for k, v in turns["s"].items()},
+            "torch_vs_numpy": turns["s"]["numpy"] / turns["s"]["torch"],
+            "agreement_rel": rel}
+        if not rel <= tol:
+            emit({"phase": "exanet_sim", "engine_rows": rows})
+            raise AssertionError(f"{coll} at {n} ranks: the torch lane "
+                                 f"differs from numpy by {rel} rel > {tol}")
+
+    # one rank per MPSoC gives the broadcast no contending acquires, so
+    # its replay runs no scan on either lane; the allreduce's does
+    if rows["allreduce"]["torch_scan_calls_per_grid"] == 0:
+        raise AssertionError("the allreduce grid ran no torch scan")
+
+    # -- 34b. one scenario sweep of cg_iteration over 1,024 columns
+    nr, face, us = EXANET["prog"]
+    prog = cg_iteration(nr, face, us)
+    rng = np.random.default_rng(EXANET["seed"])
+    cs = rng.uniform(0.5, 2.0, size=EXANET["columns"])
+    bs = rng.uniform(0.25, 3.0, size=EXANET["columns"])
+    sim = ExanetMPI()
+
+    def sweep(lane, check=0):
+        return sim.run_program_scenarios(prog, compute_scale=cs,
+                                         byte_scale=bs, engine=lane,
+                                         check=check)
+
+    checked_s = {}
+    checked = {}
+    for lane in ("numpy", "torch"):   # check= raises past 1e-9 of interp
+        t0 = time.perf_counter()
+        checked[lane] = sweep(lane, EXANET["check"])
+        checked_s[lane] = time.perf_counter() - t0
+    rel = max(max(_max_rel(x.latency_us, y.latency_us),
+                  _max_rel(x.clocks, y.clocks))
+              for x, y in zip(checked["torch"], checked["numpy"]))
+    turns = _lane_turns(sweep, EXANET["min_wall_s"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    calls0 = sum(eng.calls.values())
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sweep("torch")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    sweep_calls = sum(eng.calls.values()) - calls0
+    entries = device_kernels(prof, 1)
+    busy_ms = sum(ms for _, ms, _ in entries)
+    copy_ms = sum(ms for name, ms, _ in entries if "Memcpy" in name)
+    del prof
+    sweep_row = {
+        "program": f"cg_iteration({nr}, {face}, {us})",
+        "columns": EXANET["columns"], "checked_columns": EXANET["check"],
+        "first_call_with_check_s": checked_s,
+        "wall_s_per_sweep": turns["s"], "turns_s": turns["turns_s"],
+        "columns_per_s": {k: EXANET["columns"] / v
+                          for k, v in turns["s"].items()},
+        "torch_vs_numpy": turns["s"]["numpy"] / turns["s"]["torch"],
+        "torch_scan_calls_per_sweep": sweep_calls,
+        "agreement_rel": rel,
+        "profiled_torch_sweep": {
+            "wall_ms": prof_wall * 1e3, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / (prof_wall * 1e3),
+            "memcpy_ms": copy_ms, "device_ops": sum(k for *_, k in entries),
+            "top": [[name[:60], ms, k] for name, ms, k in entries[:6]]}}
+    line = {"phase": "exanet_sim", "lane": "torch", "device": str(eng.device),
+            "engine_rows": rows, "scenario_sweep": sweep_row,
+            "masks_cached": len(eng._takes_cache),
+            "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    if not rel <= tol:
+        raise AssertionError(f"scenario sweep: the torch lane differs from "
+                             f"numpy by {rel} rel > {tol}")
+    if sweep_calls == 0:
+        raise AssertionError("the scenario sweep ran no torch scan")
+    return line
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -5049,6 +5266,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper = whisper_phases(smi)
     vlm = vlm_phases(smi)
+
+    # --------------------------------------------- 33-34. the simulator
+    gc.collect()
+    torch.cuda.empty_cache()
+    exanet_sim_phase(smi, acts)
 
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})

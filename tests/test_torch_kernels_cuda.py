@@ -538,3 +538,46 @@ def test_hybrid_decode_step_matches_plain_attention_on_card(cuda_device,
                                              monkeypatch)
     assert launched == groups and plain_launched == 0
     _fd_close(got, want)
+
+
+@pytest.mark.cuda
+def test_exanet_torch_scan_lane_matches_numpy_on_card(cuda_device):
+    """The simulator's torch scan lane on the card against the numpy lane:
+    the scans on seeded inputs bit for bit, and a 256-rank size grid and a
+    scenario sweep replayed through ``engine="torch"`` within 1e-9."""
+    from repro_torch.core.exanet import scan_engine as se
+    from repro_torch.core.exanet import sim
+    from repro_torch.core.exanet.mpi import ExanetMPI
+    from repro_torch.core.exanet.params import DEFAULT, scaled_params
+    from repro_torch.core.exanet.schedules import RecursiveDoublingAllreduce
+    from repro_torch.core.program import cg_iteration
+    eng = se.get_scan_engine("torch")
+    assert eng.device.type == "cuda" and "torch" in se.available_engines()
+    rng = np.random.default_rng(11)
+    for batch in ((23,), (4, 23)):
+        first = rng.random(300) < 0.2
+        first[0] = True
+        takes = sim.scan_take_masks(first, 300)
+        D = rng.uniform(0.0, 5.0, (300, *batch))
+        T = rng.uniform(0.0, 50.0, (300, *batch)) + D
+        T[rng.random(T.shape) < 0.2] = -np.inf
+        want = se.NUMPY.maxplus_scan(D.copy(), T.copy(), takes)
+        for g, w in zip(eng.maxplus_scan(D, T, takes), want):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(
+            eng.running_max(T - D, takes),
+            se.NUMPY.running_max(T - D, takes))
+    mpi = ExanetMPI(scaled_params(255 * DEFAULT.cores_per_mpsoc + 1),
+                    ranks_per_mpsoc=1)
+    grid = tuple(1 << i for i in range(23))
+    got = mpi.run_schedule_many(RecursiveDoublingAllreduce(), grid, 256,
+                                engine="torch")
+    want = mpi.run_schedule_many(RecursiveDoublingAllreduce(), grid, 256)
+    np.testing.assert_allclose(got.latency_us, want.latency_us, rtol=1e-9)
+    prog = cg_iteration(64, 70000, 30.0)
+    cs, bs = rng.uniform(0.5, 2.0, 256), rng.uniform(0.25, 3.0, 256)
+    got = mpi.run_program_scenarios(prog, compute_scale=cs, byte_scale=bs,
+                                    engine="torch", check=4)
+    want = mpi.run_program_scenarios(prog, compute_scale=cs, byte_scale=bs)
+    for x, y in zip(got, want):
+        assert x.latency_us == pytest.approx(y.latency_us, rel=1e-9)

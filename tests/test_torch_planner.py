@@ -6,8 +6,9 @@ schedules``, ``core/synth``): the port keeps copies of the reference's
 modules, so both run the same float operations and every plan, cost and
 threshold must be equal exactly; program costs are held to rel 1e-12.
 Then the reference's own planner and program tests, at their own
-assertions, on the port's copies (the ``TpuMachine`` halves: the port has
-no ``ExanetMachine`` yet).
+assertions, on the port's copies, for both machines: ``TpuMachine`` and
+``ExanetMachine`` (the ExaNeSt prototype through the port's copy of the
+event engine), whose plans and costs equal the reference's as well.
 """
 
 from __future__ import annotations
@@ -20,14 +21,19 @@ import sys
 import pytest
 
 from repro.core.comm import CommPolicy as JCommPolicy
+from repro.core.exanet.mpi import ExanetMPI as JExanetMPI
+from repro.core.machine import ExanetMachine as JExanetMachine
 from repro.core.machine import TpuMachine as JTpuMachine
 from repro.core import program as jprogram
 from repro.core.synth.search import WinnerCache as JWinnerCache
 from repro.parallel import grad_sync as jgrad_sync
 from repro_torch.core import program as tprogram
 from repro_torch.core.comm import CommPolicy
+from repro_torch.core.exanet.allreduce_accel import (accel_allreduce_latency,
+                                                     accel_cost_us)
+from repro_torch.core.exanet.mpi import ExanetMPI
 from repro_torch.core.exanet.schedules import ALLREDUCE_SCHEDULES
-from repro_torch.core.machine import MachineModel, TpuMachine
+from repro_torch.core.machine import ExanetMachine, MachineModel, TpuMachine
 from repro_torch.core.planner import CollectivePlanner, crossover_bytes
 from repro_torch.core.synth.search import WinnerCache
 from repro_torch.parallel import grad_sync as tgrad_sync
@@ -281,9 +287,178 @@ def test_planning_layer_runs_without_torch_jax_or_reference():
 
 
 # ------------------------- the reference's planner and program tests, here
-def test_machines_satisfy_protocol():
-    # tests/test_planner.py::test_machines_satisfy_protocol, TpuMachine half
+def test_machines_satisfy_protocol(exa):
     assert isinstance(TpuMachine(), MachineModel)
+    assert isinstance(ExanetMachine(mpi=exa["port"][0]), MachineModel)
+
+
+# ---------------------------------------- the ExaNeSt prototype's planner
+SW_ALGOS = ("recursive_doubling", "ring", "rabenseifner", "oneshot")
+
+
+@pytest.fixture(scope="module")
+def exa():
+    """(ExanetMPI at one rank per MPSoC, its planner) for each side."""
+    out = {}
+    for side, cls in (("port", ExanetMPI), ("reference", JExanetMPI)):
+        mpi = cls(ranks_per_mpsoc=1)
+        out[side] = (mpi, mpi.planner)
+    return out
+
+
+def _true_costs_us(mpi, size, nranks):
+    sw = min(mpi.allreduce(size, nranks, a) for a in SW_ALGOS)
+    return sw, accel_cost_us(size, nranks, mpi.p)
+
+
+def _synth_truth_us(mpi, planner, size, nranks):
+    machine = planner.machine
+    entry = WinnerCache.default().get(machine.name, "allreduce", nranks,
+                                      size, machine.placement)
+    if entry is None:
+        return None
+    return mpi.allreduce(size, nranks,
+                         WinnerCache.default().schedule(entry).name)
+
+
+@pytest.mark.parametrize("nranks", [64, 128])
+def test_exanet_plans_equal_reference_and_simulated_truth(exa, nranks):
+    """tests/test_planner.py::test_planner_choice_matches_simulated_truth
+    on the port: each plan is the argmin of the event-simulated software
+    cost, the accelerator's closed form and the cached synthesized term,
+    and equals the reference's plan field for field."""
+    (mpi, planner), (_, jplanner) = exa["port"], exa["reference"]
+    for size in (256, 1024, 4096, 8192, 16384, 65536):
+        plan = planner.plan("allreduce", size, (nranks,))
+        assert _plan_fields(plan) == _plan_fields(
+            jplanner.plan("allreduce", size, (nranks,))), size
+        sw, hw = _true_costs_us(mpi, size, nranks)
+        syn = _synth_truth_us(mpi, planner, size, nranks)
+        truth = min(sw, hw) if syn is None else min(sw, hw, syn)
+        accel_wins = hw < sw and (syn is None or hw < syn)
+        assert (plan.schedule == "accel") == accel_wins, (size, plan)
+        synth_wins = syn is not None and syn < min(sw, hw)
+        assert plan.provenance == ("synthesized" if synth_wins else "menu")
+        assert plan.cost_s * 1e6 == pytest.approx(truth, rel=1e-9)
+
+
+@pytest.mark.parametrize("nranks", [64, 128])
+def test_fig19_accelerator_below_the_crossover(exa, nranks):
+    """tests/test_planner.py::test_fig19_crossover_reproduced_from_cost:
+    the plan flips from the section 4.7 accelerator to software exactly
+    once over 256 B - 64 KB, as the reference's does, and the accelerator
+    gives the paper's headline gain at the smallest size."""
+    (mpi, planner), (_, jplanner) = exa["port"], exa["reference"]
+    sizes = [256 << i for i in range(9)]
+    choices = [planner.plan("allreduce", s, (nranks,)).schedule
+               for s in sizes]
+    assert choices == [jplanner.plan("allreduce", s, (nranks,)).schedule
+                       for s in sizes]
+    is_accel = [c == "accel" for c in choices]
+    assert is_accel[0] and not is_accel[-1]
+    assert sum(1 for a, b in zip(is_accel, is_accel[1:]) if a != b) == 1
+    sw, hw = _true_costs_us(mpi, 256, nranks)
+    assert hw < 0.25 * sw
+
+
+def test_auto_allreduce_dispatches_on_plan(exa):
+    (mpi, planner), (jmpi, _) = exa["port"], exa["reference"]
+    for size, nranks in ((256, 64), (1024, 128), (16384, 128), (65536, 64)):
+        got = mpi.allreduce(size, nranks, "auto")
+        assert got == jmpi.allreduce(size, nranks, "auto")
+        plan = planner.plan("allreduce", size, (nranks,))
+        if plan.schedule == "accel":
+            assert got == accel_cost_us(size, nranks, mpi.p)
+            if size <= mpi.p.ar_accel_max_vector_bytes:
+                assert got == accel_allreduce_latency(size, nranks, mpi.p)
+        else:
+            assert got == mpi.allreduce(size, nranks, plan.schedule)
+
+
+def test_exanet_machine_costs_equal_reference(exa):
+    """tests/test_planner.py::test_exanet_machine_analytic_vs_sim_fidelity,
+    and every cost and linearization against the reference's machine."""
+    mpi, jmpi = exa["port"][0], exa["reference"][0]
+    machine, jmachine = ExanetMachine(mpi=mpi), JExanetMachine(mpi=jmpi)
+    from repro.core.exanet import schedules as jsched
+    from repro_torch.core.exanet import schedules as tsched
+    rd = tsched.RecursiveDoublingAllreduce()
+    sim = machine.cost_s(rd, 16, 4096, fidelity="sim")
+    assert sim * 1e6 == pytest.approx(
+        mpi.allreduce(4096, 16, "recursive_doubling"), rel=1e-12)
+    for fidelity in ("analytic", "sim"):
+        tiny_one = machine.cost_s(tsched.OneShotAllreduce(), 8, 1,
+                                  fidelity=fidelity)
+        assert tiny_one <= machine.cost_s(rd, 8, 1, fidelity=fidelity) * 1.5
+    for level in ("intra", "inter"):
+        assert machine.alpha_beta(level) == jmachine.alpha_beta(level)
+    for name in ("RecursiveDoublingAllreduce", "RingAllreduce",
+                 "RabenseifnerAllreduce", "OneShotAllreduce",
+                 "BinomialBroadcast"):
+        for fidelity in ("analytic", "sim"):
+            for n, size in ((8, 1), (16, 4096), (64, 1 << 20)):
+                got = machine.cost_s(getattr(tsched, name)(), n, size,
+                                     fidelity=fidelity)
+                want = jmachine.cost_s(getattr(jsched, name)(), n, size,
+                                       fidelity=fidelity)
+                assert got == want, (name, fidelity, n, size)
+
+
+def test_exanet_plan_many_and_tiers_equal_reference():
+    """tests/test_exec_compiled.py's batched planning and scaled tiers on
+    the port's machine."""
+    sizes = [1, 256, 4096, 1 << 16, 1 << 20]
+    a_pl = CollectivePlanner(ExanetMachine(), fidelity="sim")
+    plans = a_pl.plan_many("allreduce", sizes, (16,))
+    b_pl = CollectivePlanner(ExanetMachine(), fidelity="sim")
+    from repro.core.planner import CollectivePlanner as JCollectivePlanner
+    j_pl = JCollectivePlanner(JExanetMachine(), fidelity="sim")
+    want = j_pl.plan_many("allreduce", sizes, (16,))
+    assert [_plan_fields(p) for p in plans] == [_plan_fields(p)
+                                                for p in want]
+    for plan, size in zip(plans, sizes):
+        ref = b_pl.plan("allreduce", size, (16,))
+        assert plan.schedule == ref.schedule
+        assert plan.cost_s == pytest.approx(ref.cost_s, rel=1e-9)
+    hits0 = a_pl.cache_info()["hits"]
+    again = a_pl.plan_many("allreduce", sizes, (16,))
+    assert [p.schedule for p in again] == [p.schedule for p in plans]
+    assert a_pl.cache_info()["hits"] >= hits0 + len(sizes)
+    from repro_torch.core.exanet.schedules import RecursiveDoublingAllreduce
+    m = ExanetMachine()
+    c = m.cost_s(RecursiveDoublingAllreduce(), 256, 4096, fidelity="sim")
+    assert c > 0
+    from repro.core.exanet.schedules import (
+        RecursiveDoublingAllreduce as JRecursiveDoublingAllreduce)
+    assert c == JExanetMachine().cost_s(JRecursiveDoublingAllreduce(), 256,
+                                        4096, fidelity="sim")
+    assert m._mpi_for(256) is m._mpi_for(256)
+    assert m._mpi_for(16) is m.mpi
+
+
+def test_exanet_program_costs_equal_reference():
+    """tests/test_program.py's ExanetMachine half: the bsp/cg/halo programs
+    and an accelerator program costed on the prototype, equal to the
+    reference's."""
+    m, jm = ExanetMachine(), JExanetMachine()
+    for got_p, want_p in zip(_programs(tprogram), _programs(jprogram)):
+        assert m.cost_program(got_p) == jm.cost_program(want_p)
+    accel = [mod.bsp_step(8, 0.0, "allreduce", 4096, coll_algo="accel")
+             for mod in (tprogram, jprogram)]
+    for fidelity in ("analytic", "sim"):
+        assert m.cost_program(accel[0], fidelity=fidelity) == \
+            jm.cost_program(accel[1], fidelity=fidelity) > 0
+    # tests/test_program.py: the section 4.7 engine is one closed form at
+    # both fidelities; compute-only programs cost their compute
+    assert m.cost_program(accel[0], fidelity="sim") == pytest.approx(
+        m.cost_program(accel[0], fidelity="analytic"), rel=1e-12)
+    auto = m.cost_program(tprogram.bsp_step(64, 0.0, "allreduce", 256),
+                          fidelity="analytic")
+    assert auto <= accel_cost_us(256, 64, m.params) * 1e-6 + 1e-12
+    for fidelity in ("analytic", "sim"):
+        assert m.cost_program(tprogram.bsp_step(8, 300.0),
+                              fidelity=fidelity) == pytest.approx(
+                                  300e-6, rel=1e-9)
 
 
 @pytest.mark.parametrize("p", [8, 64])
