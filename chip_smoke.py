@@ -77,7 +77,10 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             tokens each. Checks 16/16 done with every token in the
             vocabulary, that flash_decode launched once per layer per
             decode_step, and the kernel against the plain version on the
-            engine's own layer-0 cache taken mid-run.
+            engine's own layer-0 cache taken mid-run. The mean rows fed a
+            token and the mean context a decode_step attends come after the
+            timed window from the engine's schedule of these prompts
+            (serve_schedule, held to the engine's decode_step count).
 7. profile  8 of the engine's decode_step calls under torch.profiler:
             device time per step by kernel, flash_decode's kernels per step
             (one launch a layer) and the device's idle share (the trace goes
@@ -350,12 +353,47 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             numpy (wall seconds per grid, sends/s); (b) run_program_
             scenarios of cg_iteration(64, 70000, 30.0) over 1,024 seeded
             compute and byte scale columns, check=8 against the
-            interpreter in both lanes, timed in turns, then one torch
+            interpreter on the torch lane (numpy held to it), timed in
+            turns, then one torch
             sweep under torch.profiler (device-busy share, copies). Gates:
             latencies and clocks of both lanes within 1e-9 relative in
             (a) and in every column of (b), and scans ran on the torch
             lane (the broadcast has no contending acquires at one rank per
             MPSoC, so it runs none on either lane).
+35. exanet_apps  the studies on the MPI layer (SIM_STUDIES): table3()
+            beside the paper's Table 3 (simulated efficiencies, not card
+            readings) under tests/test_exanet_paper_validation.py's
+            assertions (512-rank cells within 0.5 points, 2-rank within 7,
+            every efficiency at least 68.5% at 2-512 ranks, HPCG's strong
+            comm share, the DDR contention factor, the halo congestion
+            simulated); each app's weak iteration at 512 ranks over 32
+            seeded scenario columns; the interference curve of
+            halo3d(32, 65536, 50 us) beside background_stream(32, 12,
+            131072) under interleave_qfdb at loads 0-4 (the app's
+            efficiency must not rise with the load); the IP overlay's
+            closed-form throughput and RTT against the paper's.
+36. serve_sim  ServeSim(deepseek-7b, 512 ranks): build_table(mc=3,
+            rng=512) on both lanes; Poisson replays of 320 requests at
+            LOAD_FRACS of the backlog capacity from the torch lane's table
+            (quantiles, goodput, knee), whose knee must equal the numpy
+            table's; serve_step_calibration of phase 6's ms per decode_step
+            at its mean live rows and mean context against the bound at
+            roofline/hw.py's H100 peaks (finite and at least 1: the
+            prediction is a bound).
+37. train_sim  TrainSim(exanest-lm-100m, 512 ranks, seq 2048, 50 GFLOP/s
+            a rank): speedup_row's 64-member family on both lanes, the
+            blocking and overlapped pair of scaling_row on the torch lane
+            (within 1e-9 of numpy; overlapped within [critical path,
+            blocking]), and plan_train_sync at 16 ranks on both lanes
+            (check=1 on the torch lane; the same chosen candidate, the
+            same flip, step_us within 1e-9). In 35-37 each app sweep,
+            interference curve, step table and family runs first with
+            checked columns (re-run on the interpreter) on the torch lane,
+            then unchecked in the turns numpy,
+            torch, torch, numpy (wall seconds per lane), then once on the
+            torch lane under torch.profiler (the device's busy share);
+            gates: the lanes within 1e-9 relative in every latency and
+            clock, and the torch lane ran scans.
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -672,6 +710,34 @@ EXANET_PAPER = {"table2_us": {"intra_fpga": 1.17, "intra_qfdb_sh": 1.293,
                               "inter_mezz(3,1,2)": 2.555},
                 "link_utilisation": {"16G": 0.819, "10G": 0.643},
                 "accel_gain": {16: 0.834, 32: 0.862, 64: 0.871, 128: 0.879}}
+#: phases 35-37, the studies and the simulators on both scan lanes, at the
+#: sizes the reference's sweeps call real. exanet_apps: each app's weak
+#: iteration at the paper's 512 ranks over 32 scenario columns, compute
+#: x0.9-1.1 and bytes x0.8-1.2 (benchmarks/apps_sweep.py), and
+#: faults_sweep.py's interference block (halo3d(32, 65536, 50 us) beside
+#: background_stream(32, 12, 131072) on shared QFDBs). serve_sim: deepseek-7b
+#: at 512 ranks with the spec's defaults, a table of mc 3 draws, Poisson
+#: replays of 320 requests (prompts 256, outputs 24) at serve_sweep.py's
+#: LOAD_FRACS of the backlog capacity, the knee at 0.95 of the offered rate.
+#: train_sim: exanest-lm-100m at 512 ranks (train_sweep.py's MODELS[0]),
+#: speedup_row's 64-member family of one 8-bucket candidate (seed 7), the
+#: blocking/overlapped pair of scaling_row, and plan_train_sync at 16 ranks.
+#: ``check`` columns of the torch lane's first call re-run on the
+#: interpreter; the lanes agree within ``tol``
+SIM_STUDIES = dict(
+    app_ranks=512, app_columns=32, app_seed=512, app_check=3,
+    interference=dict(n_app=32, face=65536, compute_us=50.0, n_bg=32,
+                      iters=12, nbytes=131072, check=2),
+    loads=(0.0, 0.5, 1.0, 2.0, 4.0),
+    serve=dict(arch="deepseek-7b", nranks=512), serve_mc=3, serve_check=4,
+    serve_requests=320, serve_seed=512000, prompt_mean=256, out_mean=24,
+    load_fracs=(0.3, 0.5, 0.7, 0.85, 1.0, 1.2), knee_frac=0.95,
+    train=dict(arch="exanest-lm-100m", nranks=512, seq_len=2048,
+               batch_per_rank=1, rank_gflops=50.0),
+    family=64, family_seed=7, family_check=2,
+    plan_ranks=16, plan=dict(generations=1, survivors=2, children=2,
+                             check=1, seed=0),
+    tol=1e-9)
 
 T_START = time.perf_counter()
 
@@ -4733,16 +4799,9 @@ def exanet_sim_phase(smi: str, acts, device: str = "cuda") -> dict:
                                          byte_scale=bs, engine=lane,
                                          check=check)
 
-    checked_s = {}
-    checked = {}
-    for lane in ("numpy", "torch"):   # check= raises past 1e-9 of interp
-        t0 = time.perf_counter()
-        checked[lane] = sweep(lane, EXANET["check"])
-        checked_s[lane] = time.perf_counter() - t0
-    rel = max(max(_max_rel(x.latency_us, y.latency_us),
-                  _max_rel(x.clocks, y.clocks))
-              for x, y in zip(checked["torch"], checked["numpy"]))
-    turns = _lane_turns(sweep, EXANET["min_wall_s"])
+    runs = _lanes(sweep, EXANET["check"], eng, _results_rel,
+                  EXANET["min_wall_s"])
+    rel, turns = runs["agreement_rel"], runs["turns"]
     if device == "cuda":
         torch.cuda.synchronize()
     calls0 = sum(eng.calls.values())
@@ -4760,7 +4819,7 @@ def exanet_sim_phase(smi: str, acts, device: str = "cuda") -> dict:
     sweep_row = {
         "program": f"cg_iteration({nr}, {face}, {us})",
         "columns": EXANET["columns"], "checked_columns": EXANET["check"],
-        "first_call_with_check_s": checked_s,
+        "first_call_with_check_s": runs["checked_s"],
         "wall_s_per_sweep": turns["s"], "turns_s": turns["turns_s"],
         "columns_per_s": {k: EXANET["columns"] / v
                           for k, v in turns["s"].items()},
@@ -4783,6 +4842,463 @@ def exanet_sim_phase(smi: str, acts, device: str = "cuda") -> dict:
     if sweep_calls == 0:
         raise AssertionError("the scenario sweep ran no torch scan")
     return line
+
+
+def _results_rel(got, want) -> float:
+    """Largest relative gap in latency and clocks over two lists of
+    program results."""
+    return max(max(_max_rel(x.latency_us, y.latency_us),
+                   _max_rel(x.clocks, y.clocks)) for x, y in zip(got, want))
+
+
+def _scan_calls(eng) -> int:
+    return sum(eng.calls.values())
+
+
+def _lanes(fn, check: int, eng, rel, min_wall_s: float = 0.0) -> dict:
+    """``fn("torch", check)`` once with ``check`` columns re-run on the
+    interpreter (it raises past the tolerance), then ``fn(lane, 0)`` timed
+    in turns (:func:`_lane_turns`). The interpreter's runs are the same
+    work whichever lane is checked, so one lane is checked and numpy's
+    results are held to it: ``agreement_rel`` is the larger ``rel(torch,
+    numpy)`` of the checked call and of the turns. Also the checked call's
+    seconds and torch scans, and the turns."""
+    calls0, t0 = _scan_calls(eng), time.perf_counter()
+    checked = fn("torch", check)
+    checked_s = time.perf_counter() - t0
+    scans = _scan_calls(eng) - calls0
+    turns = _lane_turns(lambda lane: fn(lane, 0), min_wall_s)
+    out = turns["out"]
+    return {"checked": checked, "checked_s": {"torch": checked_s},
+            "scans": scans, "turns": turns,
+            "agreement_rel": max(rel(checked, out["numpy"]),
+                                 rel(out["torch"], out["numpy"]))}
+
+
+def _lane_row(runs: dict) -> dict:
+    s = runs["turns"]["s"]
+    return {"first_call_with_check_s": runs["checked_s"],
+            "wall_s": s, "turns_s": runs["turns"]["turns_s"],
+            "torch_vs_numpy": s["numpy"] / s["torch"],
+            "torch_scan_calls": runs["scans"],
+            "agreement_rel": runs["agreement_rel"]}
+
+
+def _torch_lane_profile(fn, acts, eng, device: str) -> dict:
+    """One torch-lane call of ``fn()`` under torch.profiler: its wall, the
+    device's busy time and share, the copies and the scans it ran."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    calls0 = _scan_calls(eng)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    entries = device_kernels(prof, 1)
+    busy = sum(ms for _, ms, _ in entries)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "busy_share": busy / wall_ms,
+            "memcpy_ms": sum(ms for n, ms, _ in entries if "Memcpy" in n),
+            "device_ops": sum(k for *_, k in entries),
+            "torch_scan_calls": _scan_calls(eng) - calls0}
+
+
+def _gate_lanes(phase: str, rows: dict) -> None:
+    """Each row's lanes within SIM_STUDIES' tolerance, and the torch lane
+    ran scans in each."""
+    tol = SIM_STUDIES["tol"]
+    for name, row in rows.items():
+        if not row["agreement_rel"] <= tol:
+            raise AssertionError(f"{phase} {name}: the torch lane differs "
+                                 f"from numpy by {row['agreement_rel']} rel "
+                                 f"> {tol}")
+        if row["torch_scan_calls"] == 0:
+            raise AssertionError(f"{phase} {name}: the torch lane ran no "
+                                 "scan")
+
+
+def exanet_apps_phase(smi: str, acts, eng, device: str) -> dict:
+    """Phase 35: the studies on PR 27's MPI layer. Table 3 and the
+    reference's assertions on it, each app's weak iteration at 512 ranks
+    over seeded scenario columns, the two-tenant interference curve and
+    the IP overlay's figures (SIM_STUDIES)."""
+    from repro_torch.core.exanet import apps, interference, ip_overlay
+    from repro_torch.core.exanet.mpi import ExanetMPI
+    from repro_torch.core.program import halo3d
+
+    S, tol = SIM_STUDIES, SIM_STUDIES["tol"]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    table = apps.table3()
+    table3_s = time.perf_counter() - t0
+    # tests/test_exanet_paper_validation.py's assertions on the apps
+    for app, modes in apps.PAPER_TABLE3.items():
+        for mode, pts in modes.items():
+            got = table[app][mode]
+            if abs(got[512] - pts[512]) > 0.5 or abs(got[2] - pts[2]) > 7.0:
+                raise AssertionError(f"Table 3 {app} {mode}: {got} against "
+                                     f"the paper's {pts}")
+    models = {name: f() for name, f in apps.ALL_APPS.items()}
+    floor = {}
+    for name, m in models.items():
+        floor[name] = min(getattr(m, mode)(n)["efficiency"]
+                          for mode in ("weak", "strong")
+                          for n in (2, 8, 64, 512))
+        if floor[name] < 0.685:
+            raise AssertionError(f"{name}: efficiency {floor[name]} under "
+                                 "the abstract's 69%")
+        for mode in ("weak", "strong"):
+            sim = m._simulate(mode, 512)
+            closed = m._comm_closed_us(m._local_points(mode, 512), 512)
+            e = m._eval(mode, 512)
+            if (sim.n_sends != 512 * 6
+                    or sim.n_collectives != m.allreduce_per_iter
+                    or not sim.comm_us > closed
+                    or not 0.0 <= e["beta"] <= e["alpha_retired"]):
+                raise AssertionError(f"{name} {mode}: the halo congestion "
+                                     f"is not the simulation's: {e}")
+    hpcg_comm = {n: models["hpcg"].strong(n)["comm_fraction"]
+                 for n in (2, 512)}
+    if abs(hpcg_comm[512] - 0.224) > 0.03 or not hpcg_comm[2] < 0.02:
+        raise AssertionError(f"HPCG's comm share {hpcg_comm}")
+    mem = {n: 1 / apps.f_mem(n) for n in (2, 4)}
+    if abs(mem[2] - 0.96) > 0.01 or abs(mem[4] - 0.89) > 0.01:
+        raise AssertionError(f"memory contention {mem}")
+
+    # each app's weak iteration at 512 ranks over seeded scenario columns
+    n, cols = S["app_ranks"], S["app_columns"]
+    sweeps = {}
+    for name, m in models.items():
+        prog, mpi = m.emit_iteration("weak", n), m.mpi_for(n)
+        rng = np.random.default_rng(S["app_seed"])
+        cs, bs = rng.uniform(0.9, 1.1, cols), rng.uniform(0.8, 1.2, cols)
+
+        def sweep(lane, check, prog=prog, mpi=mpi, cs=cs, bs=bs):
+            return mpi.run_program_scenarios(
+                prog, compute_scale=cs, byte_scale=bs, engine=lane,
+                check=check, rtol=tol)
+
+        runs = _lanes(sweep, S["app_check"], eng, _results_rel)
+        lat = [r.latency_us for r in runs["checked"]]
+        sweeps[name] = {"nranks": n, "columns": cols,
+                        "checked_columns": S["app_check"],
+                        "latency_us": {"min": min(lat), "max": max(lat)},
+                        **_lane_row(runs)}
+        if name == "hpcg":
+            profiled = _torch_lane_profile(lambda: sweep("torch", 0), acts,
+                                           eng, device)
+
+    # two tenants on shared QFDBs: the app's efficiency against the load
+    I, loads = S["interference"], S["loads"]
+    a_ranks, b_ranks = interference.interleave_qfdb(I["n_app"], I["n_bg"])
+    mix = interference.merge_tenants(
+        halo3d(I["n_app"], I["face"], compute_us=I["compute_us"]),
+        interference.background_stream(I["n_bg"], iters=I["iters"],
+                                       nbytes=I["nbytes"]),
+        a_ranks, b_ranks)
+    bs = interference.neighbor_load_byte_scale(mix, loads)
+    imp = ExanetMPI()
+
+    def curve(lane, check):
+        return imp.run_program_scenarios(mix.program, byte_scale=bs,
+                                         engine=lane, check=check, rtol=tol)
+
+    runs = _lanes(curve, I["check"], eng, _results_rel)
+    app_us = {lane: [mix.app_latency_us(r) for r in res]
+              for lane, res in runs["turns"]["out"].items()}
+    eff = {lane: [us[0] / t for t in us] for lane, us in app_us.items()}
+    sweeps["interference"] = {
+        "app": f"halo3d({I['n_app']}, {I['face']}, {I['compute_us']} us)",
+        "background": f"background_stream({I['n_bg']}, {I['iters']}, "
+                      f"{I['nbytes']})",
+        "placement": "interleave_qfdb", "loads": list(loads),
+        "app_us": app_us["torch"], "efficiency": eff,
+        **_lane_row(runs)}
+
+    overlay = {
+        "udp_65507B_gbps": {
+            "overlay": ip_overlay.overlay_throughput_gbps(65507),
+            "baseline": ip_overlay.baseline_throughput_gbps(65507),
+            "paper": {"overlay": 4.7, "baseline": 1.3}},
+        "rtt_us": {"poll": ip_overlay.overlay_rtt(mode="poll"),
+                   "sleep": ip_overlay.overlay_rtt(mode="sleep"),
+                   "paper": {"poll": 90.0, "sleep": "about 2,200"}},
+        "gap": ip_overlay.overlay_vs_native_gap()}
+    line = {"phase": "exanet_apps", "device": str(eng.device),
+            "units": "simulated efficiencies (percent), microseconds and "
+                     "Gb/s of the ExaNeSt prototype's model, not readings "
+                     "of this card; wall seconds are this host's",
+            "table3": {app: {mode: {k: {"simulated": table[app][mode][k],
+                                        "paper": v}
+                                    for k, v in pts.items()}
+                             for mode, pts in modes.items()}
+                       for app, modes in apps.PAPER_TABLE3.items()},
+            "table3_s": table3_s, "efficiency_floor": floor,
+            "hpcg_strong_comm_fraction": hpcg_comm,
+            "scenario_sweeps": sweeps, "ip_overlay": overlay,
+            "profiled_torch_sweep": {"what": "hpcg", **profiled},
+            "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    _gate_lanes("exanet_apps", sweeps)
+    for lane, e in eff.items():
+        if not all(b <= a + 1e-9 for a, b in zip(e, e[1:])):
+            raise AssertionError(f"interference ({lane} lane): the app's "
+                                 f"efficiency rises with the load: {e}")
+    ov, base = overlay["udp_65507B_gbps"]["overlay"], \
+        overlay["udp_65507B_gbps"]["baseline"]
+    if (abs(ov - 4.7) / 4.7 >= 0.15 or abs(base - 1.3) / 1.3 >= 0.25
+            or not ov > 3 * base
+            or abs(overlay["rtt_us"]["poll"] - 90.0) / 90.0 >= 0.25
+            or not overlay["rtt_us"]["sleep"] > 1500.0):
+        raise AssertionError(f"the IP overlay's figures {overlay}")
+    return line
+
+
+def _knee(traffic, spec, tab) -> dict:
+    """serve_sweep.py's load grid on one step table: the backlog capacity,
+    one seeded Poisson replay at each LOAD_FRACS share of it, the goodput
+    and latency quantiles of each, and the knee."""
+    S = SIM_STUDIES
+    kw = dict(slots=spec.slots, prefill_chunk=spec.prefill_chunk,
+              window=spec.window, kv_bucket=spec.kv_bucket,
+              step_time=tab.lookup)
+    n = 8 * spec.slots
+    backlog = traffic.replay(traffic.trace_workload(
+        np.zeros(n), np.full(n, S["prompt_mean"], dtype=np.int64),
+        np.full(n, S["out_mean"], dtype=np.int64)), **kw)
+    cap = n / float(backlog.done_us.max()) * 1e6
+    rows = []
+    for f in S["load_fracs"]:
+        res = traffic.replay(traffic.poisson_workload(
+            f * cap, S["serve_requests"], S["serve_seed"],
+            prompt_tokens=S["prompt_mean"], out_tokens=S["out_mean"]), **kw)
+        span = res.done_us.max() - res.arrive_us.min()
+        rows.append({"load_frac": f, "offered_rps": round(f * cap, 3),
+                     "goodput_rps": round(res.latency_us.size / span * 1e6,
+                                          3),
+                     "steps": res.n_steps,
+                     "latency_us": traffic.quantiles(res.latency_us),
+                     "ttft_us": traffic.quantiles(res.ttft_us)})
+    knee = traffic.knee_point([r["offered_rps"] for r in rows],
+                              [r["goodput_rps"] for r in rows],
+                              S["knee_frac"])
+    return {"capacity_rps": cap, "loads": rows, "knee_offered_rps": knee}
+
+
+def serve_sim_phase(smi: str, acts, eng, device: str,
+                    serve_reading: dict) -> dict:
+    """Phase 36: the serving simulator's step table for deepseek-7b at 512
+    ranks on both lanes, Poisson replays through it and their knee, and
+    the roofline prediction beside the serve phase's measured decode_step
+    (SIM_STUDIES)."""
+    from repro_torch.configs import get
+    from repro_torch.roofline.analysis import serve_step_calibration
+    from repro_torch.roofline.hw import H100
+    from repro_torch.serve import traffic
+    from repro_torch.serve.sim import ServeSim, ServeSimSpec
+
+    S, tol = SIM_STUDIES, SIM_STUDIES["tol"]
+    t_phase = time.perf_counter()
+    sim = ServeSim(ServeSimSpec(**S["serve"]))
+
+    def table(lane, check):
+        return sim.build_table(mc=S["serve_mc"], rng=S["serve"]["nranks"],
+                               engine=lane, check=check, rtol=tol)
+
+    runs = _lanes(table, S["serve_check"], eng,
+                  lambda got, want: _max_rel(got.us, want.us))
+    tab = runs["checked"]
+    row = {"arch": sim.spec.arch, "nranks": sim.spec.nranks,
+           "states": len(tab.states), "mc": tab.mc,
+           "columns": len(tab.states) * tab.mc,
+           "checked_columns": S["serve_check"],
+           "step_us": {"min": float(tab.us.min()),
+                       "max": float(tab.us.max())},
+           **_lane_row(runs)}
+    profiled = _torch_lane_profile(lambda: table("torch", 0), acts, eng,
+                                   device)
+    t0 = time.perf_counter()
+    knee = {lane: _knee(traffic, sim.spec, tab)
+            for lane, tab in runs["turns"]["out"].items()}
+    replay_s = time.perf_counter() - t0
+
+    # the simulator's roofline beside the card: the serve phase's own
+    # decode_step against the bound at the card's peaks
+    cfg = get("exanest-lm-100m")
+    cal = serve_step_calibration(
+        cfg, measured_step_us=serve_reading["ms_per_decode_step"] * 1e3,
+        n_decode=serve_reading["mean_live_rows"],
+        decode_kv=serve_reading["mean_context"],
+        rate_flops_per_us=H100.peak_bf16_flops / 1e6,
+        bw_bytes_per_us=H100.hbm_bw / 1e6)
+    line = {"phase": "serve_sim", "device": str(eng.device),
+            "units": "simulated microseconds of the prototype's serving "
+                     "steps; wall seconds are this host's",
+            "table": row, "profiled_torch_table": profiled,
+            "replay": {"requests": S["serve_requests"],
+                       "seed": S["serve_seed"], "wall_s_both_tables":
+                           replay_s, "torch_table": knee["torch"],
+                       "numpy_knee_offered_rps":
+                           knee["numpy"]["knee_offered_rps"]},
+            "calibration": {"arch": cfg.name, "from": "phase 6 (serve)",
+                            **serve_reading, **cal,
+                            "peaks": {"bf16_flops": H100.peak_bf16_flops,
+                                      "hbm_bytes_per_s": H100.hbm_bw}},
+            "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    _gate_lanes("serve_sim", {"table": row})
+    if knee["torch"]["knee_offered_rps"] != knee["numpy"]["knee_offered_rps"]:
+        raise AssertionError(f"the torch lane's table gives the knee "
+                             f"{knee['torch']['knee_offered_rps']}, numpy's "
+                             f"{knee['numpy']['knee_offered_rps']}")
+    ratio = cal["measured_over_predicted"]
+    if not (math.isfinite(ratio) and ratio >= 1.0):
+        raise AssertionError(f"a decode_step measured under its roofline "
+                             f"bound: ratio {ratio}")
+    return line
+
+
+def train_sim_phase(smi: str, acts, eng, device: str) -> dict:
+    """Phase 37: the train-step co-simulator for exanest-lm-100m at 512
+    ranks: a 64-member candidate family on both lanes, the blocking and
+    overlapped pair on the torch lane, and plan_train_sync at 16 ranks on
+    both lanes (SIM_STUDIES)."""
+    from repro_torch.core.planner import CollectivePlanner
+    from repro_torch.train.cosim import SyncCandidate, TrainSim, TrainStepSpec
+
+    S, tol = SIM_STUDIES, SIM_STUDIES["tol"]
+    t_phase = time.perf_counter()
+    sim = TrainSim(TrainStepSpec(**S["train"]))
+    base = SyncCandidate(8, sim.feasible_algos()[0], 1)
+    rng = np.random.default_rng(S["family_seed"])
+    fam = [base]
+    while len(fam) < S["family"]:
+        m = sim.mutate(dataclasses.replace(base), rng)
+        if m.family() == base.family() and m not in fam:
+            fam.append(m)
+    t0 = time.perf_counter()
+    sim.cost_candidates([base])          # compile and bind the family
+    warm_s = time.perf_counter() - t0
+
+    def cost(lane, check):
+        return sim.cost_candidates(fam, engine=lane, check=check, rtol=tol)
+
+    runs = _lanes(cost, S["family_check"], eng, _max_rel)
+    us = runs["checked"]
+    row = {"arch": sim.spec.arch, "nranks": sim.spec.nranks,
+           "candidates": len(fam), "family": list(base.family()),
+           "checked_columns": S["family_check"], "compile_and_bind_s":
+               warm_s, "step_us": {"min": float(us.min()),
+                                   "max": float(us.max())},
+           **_lane_row(runs)}
+    profiled = _torch_lane_profile(lambda: cost("torch", 0), acts, eng,
+                                   device)
+
+    # scaling_row's pair on the torch lane, against numpy: overlap lies
+    # between the critical path and the blocking step
+    over = SyncCandidate(8, sim.feasible_algos()[0], 2)
+    block = dataclasses.replace(over, overlap_depth=0)
+    t0 = time.perf_counter()
+    bl, ov = sim.cost_candidates([block, over], engine="torch")
+    pair_rel = _max_rel([bl, ov], sim.cost_candidates([block, over]))
+    lb = sim.lower_bound_us(over)
+    pair = {"candidate": dataclasses.astuple(over),
+            "blocking_step_us": float(bl), "overlapped_step_us": float(ov),
+            "lower_bound_us": lb, "overlap_gain": float((bl - ov) / bl),
+            "agreement_rel": pair_rel, "wall_s": time.perf_counter() - t0}
+
+    # the planner's hillclimb at 16 ranks on both lanes: the torch lane's
+    # costs with their check columns, numpy's plan held to that one
+    psim = TrainSim(TrainStepSpec(**{**S["train"],
+                                     "nranks": S["plan_ranks"]}))
+    plans, plan_s = {}, {}
+    for lane in ("torch", "numpy"):
+        kw = S["plan"] if lane == "torch" else {**S["plan"], "check": 0}
+        t0 = time.perf_counter()
+        plans[lane] = CollectivePlanner(psim.machine).plan_train_sync(
+            psim, engine=lane, **kw)
+        plan_s[lane] = time.perf_counter() - t0
+    plan_rel = _max_rel(plans["torch"].step_us, plans["numpy"].step_us)
+    plan = {"nranks": S["plan_ranks"], **S["plan"], "checked_lane": "torch",
+            "wall_s": plan_s,
+            "chosen": {k: dataclasses.astuple(p.chosen)
+                       for k, p in plans.items()},
+            "step_us": {k: p.step_us for k, p in plans.items()},
+            "baseline": dataclasses.astuple(plans["numpy"].baseline),
+            "baseline_step_us": plans["numpy"].baseline_step_us,
+            "flipped": {k: p.flipped for k, p in plans.items()},
+            "margin": plans["numpy"].margin,
+            "evaluated": plans["numpy"].evaluated, "agreement_rel": plan_rel}
+    line = {"phase": "train_sim", "device": str(eng.device),
+            "units": "simulated microseconds of the prototype's train "
+                     "steps; wall seconds are this host's",
+            "family": row, "profiled_torch_family": profiled,
+            "scaling_pair_torch": pair, "plan": plan,
+            "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(line)
+    _gate_lanes("train_sim", {"family": row})
+    if not pair_rel <= tol:
+        raise AssertionError(f"the pair: the torch lane differs from numpy "
+                             f"by {pair_rel} rel > {tol}")
+    if not lb * (1 - tol) <= ov <= bl:
+        raise AssertionError(f"the overlapped step {ov} us lies outside "
+                             f"[{lb}, {bl}]")
+    if (plan["chosen"]["torch"] != plan["chosen"]["numpy"]
+            or plans["torch"].flipped != plans["numpy"].flipped
+            or not plan_rel <= tol):
+        raise AssertionError(f"the lanes plan differently: {plan}")
+    return line
+
+
+def sim_studies_phases(smi: str, acts, serve_reading: dict,
+                       device: str = "cuda") -> dict:
+    """Phases 35-37 on the torch scan lane (get_scan_engine("torch"))
+    against the numpy lane."""
+    from repro_torch.core.exanet import scan_engine as se
+    eng = se.get_scan_engine("torch")
+    if eng.device.type != device:
+        raise AssertionError(f"the torch scan lane runs on {eng.device}")
+    return {"exanet_apps": exanet_apps_phase(smi, acts, eng, device),
+            "serve_sim": serve_sim_phase(smi, acts, eng, device,
+                                         serve_reading),
+            "train_sim": train_sim_phase(smi, acts, eng, device)}
+
+
+def serve_schedule(prompt_lens, new_tokens: int, slots: int,
+                   window: int) -> tuple[list[int], list[int]]:
+    """The decode_step calls that ServeEngine makes for requests of these
+    prompt lengths submitted at once, each generating ``new_tokens`` (no
+    eos): admission into free slots, one batched-prefill call per prompt
+    index, then one call per active slot per engine step. Per call, the
+    rows fed a token; per row, the context it attends."""
+    queue = collections.deque(prompt_lens)
+    active, pos = [0] * slots, [0] * slots
+    rows, contexts = [], []
+
+    def feed(live):
+        rows.append(len(live))
+        contexts.extend(min(pos[s] + 1, window) for s in live)
+        for s in live:
+            pos[s] += 1
+
+    while queue or any(active):
+        admitted = []
+        for s in range(slots):
+            if not active[s] and queue:
+                admitted.append((s, queue.popleft()))
+                active[s], pos[s] = new_tokens, 0
+        for k in range(max((n for _, n in admitted), default=0)):
+            feed([s for s, n in admitted if k < n])
+        for s in range(slots):
+            if active[s]:
+                active[s] -= 1
+                if active[s]:
+                    feed([s])
+                else:
+                    pos[s] = 0
+    return rows, contexts
 
 
 def free_port() -> int:
@@ -5025,11 +5541,21 @@ def main() -> int:
                              f"{cache_reading} > 1 ({FD_TOL_TEXT})")
     n_tok = sum(len(o) for o in outs)
     prompt_tok = sum(len(p) for p in prompts)
+    # rows fed a token and the context each attends, per decode_step (the
+    # serve_sim phase sets the simulator's roofline beside this phase)
+    live_rows, contexts = serve_schedule([len(p) for p in prompts], 32,
+                                         eng.slots, eng.window)
+    if len(live_rows) != calls:
+        raise AssertionError(f"the engine made {calls} decode_step calls, "
+                             f"its schedule {len(live_rows)}")
+    serve_reading = {"ms_per_decode_step": wall / calls * 1e3,
+                     "mean_live_rows": sum(live_rows) / len(live_rows),
+                     "mean_context": sum(contexts) / len(contexts)}
     emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
           "slots": 8, "window": 2048, "requests": 16, "done": done,
           "prompt_tokens": prompt_tok, "new_tokens": n_tok,
           "decode_step_calls": calls, "flash_decode_launches": launches,
-          "wall_s": wall, "ms_per_decode_step": wall / calls * 1e3,
+          "wall_s": wall, **serve_reading,
           "tok_per_s": (prompt_tok + n_tok) / wall,
           "new_tok_per_s": n_tok / wall,
           "engine_cache_check": {"lengths": lens0.cpu().tolist(),
@@ -5271,6 +5797,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     exanet_sim_phase(smi, acts)
+
+    # ------------------------- 35-37. the studies and the simulators
+    sim_studies_phases(smi, acts, serve_reading)
 
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})

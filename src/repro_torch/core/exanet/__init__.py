@@ -22,13 +22,16 @@ reference's ``repro.core.exanet`` does, module for module:
   ``"numpy"`` (the default, host code) and ``"torch"`` (float64 torch ops
   on the card, in place of the reference's jax lane);
 * :mod:`~repro_torch.core.exanet.mpi` — :class:`ExanetMPI`, the MPI layer
-  and OSU-style microbenchmarks over all of the above.
+  and OSU-style microbenchmarks over all of the above;
+* the studies built on it: :mod:`~repro_torch.core.exanet.apps` (the
+  section 6.2 applications and Table 3),
+  :mod:`~repro_torch.core.exanet.interference` (two tenants on shared
+  QFDBs) and :mod:`~repro_torch.core.exanet.ip_overlay` (the section 5.3
+  IP overlay).
 
 Two changes from the reference, both in ROADMAP.md's record of the port's
 differences: the torch scan lane, and ``program_compiled._lower_coll``
-resolving synthesized schedule names as the interpreter does.  The
-studies built on this package (``apps``, ``interference``,
-``ip_overlay``) are not ported yet.
+resolving synthesized schedule names as the interpreter does.
 """
 
 from repro_torch.core.exanet.params import DEFAULT, HwParams, scaled_params

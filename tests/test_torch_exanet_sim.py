@@ -10,7 +10,8 @@ the section 4.7 accelerator), the routing invariants of the torus and the
 fault model (``tests/test_exanet_paper_validation.py``,
 ``tests/test_exanet_routing.py``, ``tests/test_fault_engine.py``). The
 studies built on the engine (``apps``, ``interference``, ``ip_overlay``)
-are not ported yet. Every random draw comes from a fixed seed.
+are held against the reference's in ``tests/test_torch_exanet_apps.py``.
+Every random draw comes from a fixed seed.
 """
 
 from __future__ import annotations

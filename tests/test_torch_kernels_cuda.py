@@ -581,3 +581,31 @@ def test_exanet_torch_scan_lane_matches_numpy_on_card(cuda_device):
     want = mpi.run_program_scenarios(prog, compute_scale=cs, byte_scale=bs)
     for x, y in zip(got, want):
         assert x.latency_us == pytest.approx(y.latency_us, rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_serve_and_train_sim_torch_lane_match_numpy_on_card(cuda_device):
+    """The serve and train simulators' batched replays through the torch
+    scan lane on the card against the numpy lane: a serve step table and
+    a train candidate family within 1e-9, with scans on the card."""
+    import dataclasses
+
+    from repro_torch.core.exanet import scan_engine as se
+    from repro_torch.serve.sim import ServeSim, ServeSimSpec
+    from repro_torch.train.cosim import SyncCandidate, TrainSim, TrainStepSpec
+    eng = se.get_scan_engine("torch")
+    assert eng.device.type == "cuda"
+    calls = sum(eng.calls.values())
+    sim = ServeSim(ServeSimSpec(arch="deepseek-7b", nranks=32))
+    got = sim.build_table(mc=2, rng=3, engine="torch", check=2)
+    want = sim.build_table(mc=2, rng=3)
+    np.testing.assert_allclose(got.us, want.us, rtol=1e-9, atol=0)
+    tsim = TrainSim(TrainStepSpec(nranks=32, seq_len=512))
+    base = SyncCandidate(8, tsim.feasible_algos()[0], 1)
+    rng = np.random.default_rng(7)
+    fam = [base] + [tsim.mutate(dataclasses.replace(base), rng)
+                    for _ in range(12)]
+    got = tsim.cost_candidates(fam, engine="torch", check=2)
+    want = tsim.cost_candidates(fam)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=0)
+    assert sum(eng.calls.values()) > calls
