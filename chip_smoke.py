@@ -220,10 +220,10 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             flash_decode's (64, 64) instance launched 24 times (once per
             layer) per decode_step; the kernel against its plain version at
             FD_TOL on layer 0's own bf16 cache (the row at 512, and at 317).
-21. moe_serve  ServeEngine(slots=8, window=2048) on the first 6 of the
+21. moe_serve  ServeEngine(slots=8, window=2048) on the first 3 of the
             trained layers (MOE_SERVE_LAYERS, full width), 16 requests of
             64-512 prompt tokens (MOE_SERVE_PROMPTS, numpy seed 0) and 32
-            new tokens each: 16/16 done, tokens in the vocabulary, 6
+            new tokens each: 16/16 done, tokens in the vocabulary, 3
             flash_decode launches per decode_step; ms per decode_step and
             tokens/s.
 22. moe_ep  expert parallelism over data on this one card: four processes
@@ -278,7 +278,7 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             on a (pod 2, data 2, model 2) mesh over gloo, all on cuda:0
             (SHARD). (a) full-width exanest-lm-100m (bf16, random weights
             from torch.Generator seed 0, drawn whole on every rank, each
-            keeping its param_specs blocks): 3 sharded Trainer steps of a
+            keeping its param_specs blocks): 2 sharded Trainer steps of a
             global batch 8 x 512 (2 rows a batch rank), TP over model (6 of
             12 heads, 2 of 4 KV heads, 1024 of 2048 MLP columns), ZeRO-3
             over data (each layer's data shards gathered at its entry), the
@@ -308,7 +308,31 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             columns (TP over model), one forward and backward; the routes
             equal emulate_ep's (EP with a model axis of 1) on the gathered
             tokens, the output, input gradient and parameter gradients
-            within SHARD_BF16_TOL.
+            within SHARD_BF16_TOL. (e) every other family on the same
+            ranks (SHARD_FAMILIES), each at full width with its depth cut:
+            mamba2-2.7b (2 layers; 40 of 80 heads a rank, 64 of 128 d_state
+            columns of wB/wC), zamba2-2.7b (12 layers: 2 groups, the shared
+            block twice, 16 of 32 heads), deepseek-v3-671b (its first 2
+            layers, both dense; MLA's absorbed decode with 256 of 512
+            latent and 32 of 64 rope columns a rank), whisper-small (2 + 2 layers, 6 of 12
+            heads, 1,500 frames) and internvl2-1b (2 layers, 7 of 14 query
+            heads over 1 of 2 KV heads, 256 patches): one sharded Trainer
+            step (not deepseek's: SHARD_FAMILIES says why) against the
+            unsharded step on the same weights (loss and every updated
+            leaf at SHARD_STEP_TOL, the synced gradients at
+            SHARD_GRAD_TOL beyond twice the bf16 model's own distance from
+            its float32 twin, SHARD_GRAD_FLOOR), prefill then 16
+            decode_steps under keep_gathered against the unsharded model's
+            logits, and each rank's caches against their block of the
+            unsharded caches (SHARD_BF16_TOL beyond twice that distance),
+            each on the four
+            pod-0 ranks in turn; bytes a
+            rank (parameters, moments, caches) against the specs'
+            reckoning; launches a rank as reckoned: combine a step
+            (shard_expected_combines), ssd_scan per SSM layer and step,
+            flash_decode per attention layer and decode_step; the kernels
+            on each rank's own inputs (ssd_scan on its first layer's SSD,
+            flash_decode on its caches).
 29. whisper_train  full-width whisper-small (EncDecLM: 12 encoder and 12
             decoder layers, d_model 768, 12 heads of 64, GELU, LayerNorm,
             learned positions, vocab 51,865; 0.30 B parameters; bf16,
@@ -573,12 +597,13 @@ MOE_DECODE_NO_DROP_CF = 2.0
 #: script 828.9 s without the deepseek phases and 981.8 s with them (PERF.md
 #: section 2)
 MOE_SERVE_PROMPTS = (64, 512)
-#: moe_serve's depth: the first 6 of the 24 trained layers, full width. At
+#: moe_serve's depth: the first 3 of the 24 trained layers, full width. At
 #: 24 layers the phase took 171.3-176.4 s (1,440 host-bound decode_steps,
 #: ~101 ms each) and the whole script 952.2 s once the shard phase came; at
 #: 12, 80.4-117.3 s, and the whole script 1,058.9 s once the whisper and
-#: VLM phases came (PERF.md section 2)
-MOE_SERVE_LAYERS = 6
+#: VLM phases came; at 6, 31.9-71.4 s, and the whole script 1,202.9 s on a
+#: slow host once the shard phase took every family (PERF.md section 2)
+MOE_SERVE_LAYERS = 3
 #: expert parallelism on four ranks of this one card: full width at
 #: reduced depth, a global batch of 8 x 512
 MOE_EP = dict(world=4, mesh=(2, 2), n_layers=2, global_batch=8, seq=512,
@@ -630,13 +655,13 @@ LINES: list[dict] = []
 
 #: phase 28 (shard): eight gloo ranks on this one card as a (pod 2, data 2,
 #: model 2) mesh, the reference's test_distributed.py mesh. (a) full-width
-#: exanest-lm-100m, global batch 8 x 512, 3 sharded steps at lr 1e-3 from
+#: exanest-lm-100m, global batch 8 x 512, 2 sharded steps at lr 1e-3 from
 #: step 1 (warmup 1); (b) prefill of 512 tokens then 16 decode steps at
 #: batch 8; (c) granite's MoE layer 0 at full width, model cut to 2 layers,
 #: on layer 0's normed input of a global batch 8 x 512; (d) the state after
 #: (a) saved on (data 2, model 4), restored onto (data 4, model 2)
 SHARD = dict(world=8, mesh=(2, 2, 2), arch="exanest-lm-100m",
-             global_batch=8, seq=512, steps=3, lr=1e-3, prompt=512,
+             global_batch=8, seq=512, steps=2, lr=1e-3, prompt=512,
              decode=16, moe_arch="granite-moe-1b-a400m", moe_layers=2,
              reshard=((2, 4), (4, 2)))
 #: (a) the reference's own tolerance for a sharded step against the
@@ -660,6 +685,58 @@ SHARD_GRAD_TOL = 5e-2
 #: 1e-4 (a replicated leaf counted twice adds its whole share)
 SHARD_UPDATE_TOL = 1e-2
 SHARD_NORM_TOL = 1e-4
+#: (e) reads the unsharded bf16 model's own error: its float32 twin (the
+#: same weights widened) runs beside it, and each reading allows that
+#: distance on top of its tolerance, as decode_readings does for the SSM
+#: decodes, once for each of the two bf16 runs (both round at every
+#: layer, the sharded one more often: each sum over model rounds its
+#: parts, so the two can stand apart by the sum of their distances from
+#: the twin; the unsharded run's stands for both): a synced gradient
+#: within SHARD_GRAD_TOL of the leaf's largest value plus twice the leaf's
+#: largest bf16-against-float32 distance; logits and caches within
+#: SHARD_BF16_TOL plus twice theirs. Read against the tolerance alone,
+#: zamba2's 12 layers read 1.24-2.16 on logits and caches and 0.16 on
+#: gradients in a first run, whisper's 0.09-0.11 on gradients; mamba2's 2
+#: layers 0.18-0.32 and 0.02. With one distance allowed, whisper's
+#: decoder.attn.wo read 0.058 (its error 7.1e-4, its bf16 distance
+#: 3.4e-4, its largest value 6.3e-3).
+#: The key biases (bk) of attention without rotary positions have an exact
+#: gradient of zero (every score of a query shifts by q·bk, which the
+#: softmax removes; a rotated bk shifts each key's score differently):
+#: both sides hold rounding noise only (whisper's three, in a CPU
+#: rehearsal at reduced size: 2.6e-4 to 3.9e-4 of the tree's largest
+#: gradient, 0.71-0.79 of their own largest value apart), so each side's
+#: largest value is held under 1e-3 of the tree's largest gradient
+SHARD_GRAD_FLOOR = 1e-3
+#: phase 28 (e): the other families on the same eight ranks, each at full
+#: width from its config with its depth cut, a global batch of 8 rows,
+#: weights drawn on the card from torch.Generator seed 0: (label, arch,
+#: cuts, decoder tokens a row, whether a sharded train step runs).
+#: deepseek-v3-671b keeps its own first two layers, both dense (the config
+#: has 3), and no MTP head, which no decode_step reads: MLA is what it
+#: brings, and MoE under EP + TP is (c)'s (on identical inputs: through a
+#: model, bf16 sums over model that round apart flip a route at a near-tie
+#: of the top 8 of 16 experts, which read 2.23 on data rank 1's rows in a
+#: first run with one MoE layer). Its sharded train step does not fit: a
+#: rank's quarter of its 3.0 B parameters with float32 moments is 7.5 GB,
+#: 60 GB for eight ranks, and the embedding and head each rank gathers
+#: whole (1.85 GB each) and the unsharded step beside them pass the card's
+#: 80 GB (its sharded step is held on the CPU,
+#: tests/test_torch_sharded_step.py)
+SHARD_FAMILIES = (
+    ("mamba2", "mamba2-2.7b", {"n_layers": 2}, 512, True),
+    ("hybrid", "zamba2-2.7b", {"n_layers": 12}, 512, True),
+    ("mla", "deepseek-v3-671b", {"n_layers": 2, "n_dense_layers": 2,
+                                 "mtp_depth": 0}, 512, False),
+    ("encdec", "whisper-small", {"n_layers": 2, "n_encoder_layers": 2}, 448,
+     True),
+    ("vlm", "internvl2-1b", {"n_layers": 2}, 256, True),
+)
+#: (e)'s decode_steps after a prefill of the row's other tokens
+SHARD_FAMILY_DECODE = 16
+#: (e)'s ranks draw their full trees at once while they fit in this many GB
+#: of the card together, else in waves
+SHARD_DRAW_GB = 16.0
 
 #: phases 29-32, the encoder-decoder and VLM families at full width (bf16,
 #: weights drawn on the card from torch.Generator("cuda") seed 0). Training
@@ -3727,21 +3804,64 @@ def _update_reading(got: torch.Tensor, want: torch.Tensor,
             "moved_share": (w != b).double().mean().item()}
 
 
-def shard_expected_combines(cfg, pctx, plan: list, n_pod: int) -> dict:
-    """``combine`` launches one sharded train step of the dense LM makes on
-    each rank, from the model's layout alone: per layer a sum over model
-    after attention and after the MLP in forward, the attention's again in
-    the recompute (the MLP's sum is the block's last op and nothing
-    backward reads comes after it, so the non-reentrant checkpoint stops
-    its recompute before it), a sum over model in backward at the entry of
-    each (the copies' adjoint); one reduce-scatter over data in backward
-    for each leaf sharded over data (the layer's, once a layer, and the
-    embedding's); the sync's plan of the leaves replicated over data and
-    one sum over pod per bucket of the rest; the gradient norm and the
-    loss's mean over the batch ranks, one each."""
-    from repro_torch.models.attention import gqa_tp
-    from repro_torch.models.layers import mlp_tp
-    from repro_torch.models.transformer import layer_specs, top_specs
+def _block_combines(cfg, pctx, kind: str, over_data) -> dict:
+    """``combine`` launches one call of a block of ``kind`` makes on each
+    rank in a sharded train step. Attention blocks: a sum over model after
+    attention (and after a decoder's cross-attention) and after the MLP in
+    forward, the attention's (and the cross-attention's) again in the
+    recompute (the MLP's sum is the block's last op and nothing backward
+    reads comes after it, so the non-reentrant checkpoint stops its
+    recompute before it), a sum over model in backward at each entry (the
+    copies' adjoint: one for the queries and K/V, three under ``mha_ize``;
+    the cross-attention's query and its K/V from the encoder output; the
+    MLP's). Mamba-2 blocks: the gated norm's sum of squares and
+    ``out_proj``'s sum in forward, the norm's again in the recompute
+    (``out_proj``'s is last), and in backward the entry's copy, the norm's
+    copy and the reduce-scatters of B and C gathered over model. Then one
+    reduce-scatter over data in backward for each leaf sharded over data
+    (the block's leaves are gathered at each call)."""
+    from repro_torch.models.attention import _mha_ize, gqa_tp
+    from repro_torch.models.layers import mlp_tp, tp_active
+    from repro_torch.models.transformer import layer_specs
+    zero = over_data(layer_specs(cfg, kind, pctx))
+    if kind == "ssm":
+        tp = int(tp_active(pctx))
+        return {"forward": 2 * tp, "recompute": tp, "backward": 4 * tp,
+                "zero": zero}
+    attn, mlp = int(gqa_tp(cfg, pctx)), int(mlp_tp(cfg.d_ff, pctx))
+    kv = 2 if _mha_ize(cfg, pctx.tp_size) else 0
+    cross = attn if kind == "decoder" else 0
+    return {"forward": attn + cross + mlp, "recompute": attn + cross,
+            "backward": attn * (1 + kv) + cross * (2 + kv) + mlp,
+            "zero": zero}
+
+
+def shard_block_calls(model) -> list[tuple[str, int]]:
+    """(block kind, calls a step) of ``model``'s trunk: a hybrid's shared
+    block once a group, an encoder-decoder's two stacks."""
+    cfg = model.cfg
+    name = type(model).__name__
+    if name == "SSMLM":
+        return [("ssm", cfg.n_layers)]
+    if name == "HybridLM":
+        return [("ssm", cfg.n_layers), ("dense", model.n_groups)]
+    if name == "EncDecLM":
+        return [("encoder", cfg.encdec.n_encoder_layers),
+                ("decoder", cfg.n_layers)]
+    if cfg.moe is not None:
+        raise ValueError(f"{cfg.name}: no reckoning for MoE layers")
+    return [("dense", cfg.n_layers)]
+
+
+def shard_expected_combines(model, pctx, plan: list, n_pod: int) -> dict:
+    """``combine`` launches one sharded train step of ``model`` makes on
+    each rank, from its layout alone: its blocks' (:func:`_block_combines`
+    per call, :func:`shard_block_calls`), one reduce-scatter over data in
+    backward for each top leaf sharded over data (the embedding's), the
+    sync's plan of the leaves replicated over data and one sum over pod per
+    bucket of the rest, the gradient norm and the loss's mean over the
+    batch ranks, one each."""
+    from repro_torch.models.transformer import top_specs
     from repro_torch.parallel.grad_sync import combine_launches_per_sync
     from repro_torch.parallel.sharding import is_spec, spec_axes
     from repro_torch import tree as tree_util
@@ -3750,18 +3870,489 @@ def shard_expected_combines(cfg, pctx, plan: list, n_pod: int) -> dict:
         return sum("data" in {a for e in s for a in spec_axes(e)}
                    for s in tree_util.leaves(tree, is_leaf=is_spec))
 
-    L = cfg.n_layers
-    attn, mlp = int(gqa_tp(cfg, pctx)), int(mlp_tp(cfg.d_ff, pctx))
-    parts = {"tp_forward": L * (attn + mlp), "tp_recompute": L * attn,
-             "tp_backward": L * (attn + mlp),
-             "zero_reduce_scatter": L * over_data(layer_specs(cfg, "dense",
-                                                              pctx))
-             + over_data(top_specs(cfg, pctx)),
-             "sync_replicated_plan": combine_launches_per_sync(pctx.mesh,
-                                                               plan),
-             "sync_pod_buckets": n_pod, "grad_norm": 1, "loss_mean": 1}
+    parts = {"tp_forward": 0, "tp_recompute": 0, "tp_backward": 0,
+             "zero_reduce_scatter": over_data(top_specs(model.cfg, pctx))}
+    for kind, calls in shard_block_calls(model):
+        blk = _block_combines(model.cfg, pctx, kind, over_data)
+        parts["tp_forward"] += calls * blk["forward"]
+        parts["tp_recompute"] += calls * blk["recompute"]
+        parts["tp_backward"] += calls * blk["backward"]
+        parts["zero_reduce_scatter"] += calls * blk["zero"]
+    parts.update({"sync_replicated_plan": combine_launches_per_sync(
+        pctx.mesh, plan), "sync_pod_buckets": n_pod, "grad_norm": 1,
+        "loss_mean": 1})
     parts["total"] = sum(parts.values())
     return parts
+
+
+def shard_family_config(arch: str, cut: dict):
+    """``arch`` at full width with SHARD_FAMILIES' ``cut``."""
+    from repro_torch.configs import get
+    cfg = get(arch)
+    kw = dict(cut)
+    if "n_experts" in kw:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=kw.pop("n_experts"))
+    if "n_encoder_layers" in kw:
+        kw["encdec"] = dataclasses.replace(
+            cfg.encdec, n_encoder_layers=kw.pop("n_encoder_layers"))
+    return dataclasses.replace(cfg, **kw)
+
+
+def _window(cache, n: int):
+    """``cache`` with room for ``n`` more positions: attention KV and MLA's
+    latent grow along their sequence dim; SSM and conv states and whisper's
+    cross K/V do not."""
+    import torch.nn.functional as F
+    from repro_torch import tree as tree_util
+
+    def grow(name, t):
+        parts = name.split(".")
+        if parts[0] in ("conv", "ssm", "cross"):
+            return t
+        pad = (0, 0, 0, n) if parts[-1] in ("c_kv", "k_rope") else \
+            (0, 0, 0, 0, 0, n)
+        return F.pad(t, pad).contiguous()
+
+    return tree_util.unflatten(cache, [grow(k, t) for k, t in
+                                       tree_util.named_leaves(cache)])
+
+
+def _cut_cache(name: str, t: torch.Tensor, spec, mesh,
+               coords: dict) -> torch.Tensor:
+    """The block of a whole cache leaf the rank at ``coords`` holds:
+    ``spec`` from cache_specs; whisper's cross K/V by rows and KV heads
+    (cache_specs reads them by their shape as an SSM state, (B, h, ...)
+    with S_enc as h; ROADMAP.md R13)."""
+    from repro_torch.parallel.sharding import Sharding, Spec
+    if name.startswith("cross"):
+        spec = Spec(None, ("pod", "data"), None, "model", None)
+    return t[Sharding(mesh, spec).slices(t.shape, coords)]
+
+
+def shard_family(fam: tuple, rank: int, mesh, pctx, dev) -> dict:
+    """Phase 28 (e) for one of SHARD_FAMILIES on this rank: its readings
+    (train, decode, bytes, launches, the kernels on its own inputs, and,
+    on the pod-0 ranks, the unsharded run's readings of its blocks)."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens, shard_batch
+    from repro_torch.kernels.allreduce_combine import kernel as ck
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.models import build_model, ssm
+    from repro_torch.parallel.grad_sync import plan_sharded_sync
+    from repro_torch.parallel.sharding import (Sharding, cache_specs, is_spec,
+                                               opt_state_specs, param_specs)
+    from repro_torch.parallel.tensor_parallel import keep_gathered
+    from repro_torch.train.loop import Trainer, shardings_of
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    label, arch, cut, seq, train = fam
+    on_card = dev.type == "cuda"
+    cfg = shard_family_config(arch, cut)
+    model = build_model(cfg)
+    world = dist.get_world_size()
+    n_patch = cfg.vision.n_patches if cfg.vision is not None else 0
+    prompt, nd = seq - SHARD_FAMILY_DECODE, SHARD_FAMILY_DECODE
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in tree_util.leaves(tree))
+
+    def reckoned(tree, sp):
+        return sum(t.numel() * t.element_size()
+                   // math.prod(Sharding(mesh, s).parts(t.shape))
+                   for t, s in zip(tree_util.leaves(tree),
+                                   tree_util.leaves(sp, is_leaf=is_spec)))
+
+    def draw():
+        return model.init(torch.Generator(dev).manual_seed(0), device=dev)
+
+    meta = model.init(None, device="meta")
+    spec_l = tree_util.leaves(param_specs(meta, cfg, pctx), is_leaf=is_spec)
+    wave = max(1, min(world, int(SHARD_DRAW_GB * 1e9 // nbytes(meta))))
+    params = None
+    for first in range(0, world, wave):
+        if first <= rank < first + wave:
+            full = draw()
+            params = tree_util.unflatten(full, [
+                Sharding(mesh, sp).shard(t)
+                for sp, t in zip(spec_l, tree_util.leaves(full))])
+            del full
+            if on_card:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    batch = SyntheticTokens(cfg, batch=SHARD["global_batch"], seq=seq,
+                            seed=29, device=dev).batch_at(0)
+    local = shard_batch(batch, pctx)
+    n_ssm = cfg.n_layers if cfg.ssm is not None else 0
+    out = {"arch": arch, "cut": cut, "seq": seq, "patches": n_patch,
+           "wave": wave, "ssm_layers": n_ssm}
+    opt_cfg = AdamWConfig(lr=SHARD["lr"], warmup_steps=1, decay_steps=10)
+    out["bytes"] = {"params": nbytes(params),
+                    "params_reckoned": reckoned(meta, param_specs(
+                        meta, cfg, pctx)),
+                    "params_full": nbytes(meta)}
+
+    # ---- (a) one sharded train step
+    p1 = g1 = None
+    if train:
+        tr = Trainer(model, opt_cfg, pctx=pctx, device=dev)
+        state = {"params": params, "opt": adamw_init(params, opt_cfg)}
+        meta_opt = adamw_init(meta, opt_cfg)
+        out["bytes"].update({
+            "moments": nbytes(state["opt"]),
+            "moments_reckoned": reckoned(meta_opt, opt_state_specs(
+                meta_opt, meta, cfg, pctx))})
+        plan, n_pod = plan_sharded_sync(params, shardings_of(model, pctx),
+                                        mesh)
+        want = shard_expected_combines(model, pctx, plan, n_pod)
+        seen = {}
+        sync_fn = tr.make_sync()
+
+        def capture(g):
+            seen["g"] = sync_fn(g)
+            return seen["g"]
+
+        step = tr.make_step(sync_fn=capture)
+        sync()
+        dist.barrier()
+        ck.launches = sk.launches = fd.launches = 0
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        sync()
+        wall = time.perf_counter() - t0
+        p1, g1 = state["params"], seen["g"]
+        digest = _digest(p1)
+        rep = _digest({n: t for (n, t), sp in zip(
+            tree_util.named_leaves(p1), spec_l) if not any(sp)})
+        every = [None] * world
+        dist.all_gather_object(every, (mesh.coords, digest, rep))
+        by_block: dict = {}
+        for c, dg, _ in every:
+            by_block.setdefault((c["data"], c["model"]), set()).add(dg)
+        out["train"] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "wall_s": wall, "combine_launches": ck.launches,
+            "expected_combines": want, "plan": dict(collections.Counter(plan)),
+            "ssd_scan_launches": sk.launches,
+            "flash_decode_launches": fd.launches,
+            "blocks_equal_across_pods": all(len(v) == 1
+                                            for v in by_block.values()),
+            "replicated_equal_everywhere": len({r for *_, r in every}) == 1,
+            "leaves_moved": sum(not torch.equal(a, b) for a, b in zip(
+                tree_util.leaves(p1), tree_util.leaves(params))),
+            "leaves_n": len(spec_l)}
+        del state, seen
+
+    # ---- (b) sharded prefill, then decode_steps, the gathers kept
+    ssd_in = []
+    ssd_route = ssm.ssd
+
+    def first_ssd(*a):
+        if not ssd_in:
+            ssd_in.extend(t.detach().clone() if torch.is_tensor(t) else t
+                          for t in a)
+        return ssd_route(*a)
+
+    toks = local["tokens"]
+    ssm.ssd = first_ssd
+    try:
+        with torch.no_grad(), keep_gathered():
+            sync()
+            dist.barrier()
+            ck.launches = sk.launches = fd.launches = 0
+            t0 = time.perf_counter()
+            lg, caches = model.prefill(params, {**local,
+                                                "tokens": toks[:, :prompt]},
+                                       pctx)
+            sync()
+            prefill_s = time.perf_counter() - t0
+            prefill_ssd, prefill_combine = sk.launches, ck.launches
+            caches = _window(caches, nd)
+            sync()
+            dist.barrier()
+            ck.launches = fd.launches = 0
+            t0 = time.perf_counter()
+            outs = [lg]
+            for i in range(nd):
+                lg, caches = model.decode_step(
+                    params, caches, {"token": toks[:, prompt + i],
+                                     "pos": n_patch + prompt + i}, pctx)
+                outs.append(lg)
+            sync()
+            dec_s = time.perf_counter() - t0
+            dec_fd, dec_combine = fd.launches, ck.launches
+    finally:
+        ssm.ssd = ssd_route
+    logits = torch.cat(outs, dim=1)
+    window = n_patch + seq
+    cmeta = model.init_cache(SHARD["global_batch"], window, device="meta")
+    cspecs = cache_specs(cmeta, cfg, ShapeConfig(
+        "decode", window, SHARD["global_batch"], "decode"), pctx)
+    cspec_of = dict(zip((n for n, _ in tree_util.named_leaves(cmeta)),
+                        tree_util.leaves(cspecs, is_leaf=is_spec)))
+    out["bytes"].update({"caches": nbytes(caches),
+                         "caches_reckoned": reckoned(cmeta, cspecs),
+                         "caches_full": nbytes(cmeta)})
+    out["decode"] = {
+        "prefill_tokens": n_patch + prompt, "decode_steps": nd,
+        "prefill_s": prefill_s, "ms_per_decode_step": dec_s / nd * 1e3,
+        "prefill_ssd_scan_launches": prefill_ssd,
+        "prefill_combine_launches": prefill_combine,
+        "flash_decode_launches": dec_fd,
+        "flash_decode_per_decode_step": dec_fd / nd,
+        "combine_per_decode_step": dec_combine / nd,
+        "finite": bool(torch.isfinite(logits).all().item()),
+        "local_caches": {k: list(t.shape) for k, t in
+                         tree_util.named_leaves(caches)}}
+    if cfg.mla is not None:
+        lat = caches["dense"]
+        out["decode"]["latent_share"] = (lat["c_kv"].shape[-1]
+                                         / cfg.mla.kv_lora_rank)
+        out["decode"]["rope_share"] = (lat["k_rope"].shape[-1]
+                                       / cfg.mla.qk_rope_head_dim)
+    if cfg.ssm is not None:
+        st = caches["ssm"]["ssm"] if "attn" in caches else caches["ssm"]
+        out["decode"]["ssm_state_heads"] = int(st.shape[-3])
+        out["ssm_heads"] = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+
+    # the kernels on this rank's own inputs, against their plain versions
+    checks = {}
+    if on_card and ssd_in:
+        from repro_torch.kernels.ssd_scan.ref import ssd_chunked_tc
+        x, dt, A, B, C, chunk = ssd_in
+        pad = -x.shape[1] % chunk
+        if pad:
+            x, B, C = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                       for t in (x, B, C))
+            dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        ins = [t.contiguous() for t in (x, dt, A, B, C)]
+        y, st = sk.ssd_scan(*ins, chunk=chunk)
+        y_t, st_t = ssd_chunked_tc(*ins, chunk)
+        sync()
+
+        def rel(a, b):
+            return ((a - b).abs().max() / b.abs().max()).item()
+
+        checks["ssd_scan"] = {"shape": list(x.shape) + [B.shape[-1]],
+                              "chunk": chunk, "variant": sk.variant_for(
+                                  x.dtype, x.shape[3], B.shape[3], chunk),
+                              "rel_err_vs_ssd_chunked_tc": max(
+                                  rel(y, y_t), rel(st, st_t)),
+                              "tol": SSD_TC_TIGHT}
+    if on_card:
+        S = n_patch + seq
+        lengths = torch.tensor([S, S // 2], dtype=torch.int32, device=dev)
+        kv = {}
+        if "attn" in caches:
+            kv["attn"] = (caches["attn"]["k"][0], caches["attn"]["v"][0],
+                          lengths)
+        if "self" in caches:
+            kv["self"] = (caches["self"]["k"][0], caches["self"]["v"][0],
+                          lengths)
+            k0, v0 = caches["cross"][0][0], caches["cross"][1][0]
+            kv["cross"] = (k0, v0, torch.full_like(lengths, k0.shape[1]))
+        if "dense" in caches and "k" in caches["dense"]:
+            kv["dense"] = (caches["dense"]["k"][0], caches["dense"]["v"][0],
+                           lengths)
+        H = cfg.n_heads // pctx.tp_size
+        for name, (k, v, ln) in kv.items():
+            checks[f"flash_decode_{name}"] = cache_check(
+                290 + rank, H, k.contiguous(), v.contiguous(), ln)
+    out["kernel_checks"] = checks
+
+    # ---- the unsharded model (the others' freed gathers handed back to
+    # the card first): on rank 0, its float32 twin and its bf16 decode,
+    # against which every rank's decode is read there; then its bf16 step
+    # on the pod-0 ranks in turns, each reading its own blocks (a pod-1
+    # rank's are its pod-0 twin's, bit for bit: blocks_equal_across_pods)
+    if on_card:
+        torch.cuda.empty_cache()
+    every = [None] * world if rank == 0 else None
+    dist.gather_object((mesh.coords, logits.cpu(), {
+        n: t.cpu() for n, t in tree_util.named_leaves(caches)}), every, dst=0)
+    noise = [None]
+    if rank == 0:
+        noise[0], want, c16 = shard_family_twin(
+            model, draw, dev, batch, prompt, nd, n_patch, opt_cfg, train)
+        out["unsharded_decode"] = shard_decode_readings(
+            every, want, c16, noise[0], cspec_of, mesh, pctx)
+        out["bf16_noise"] = {"logits": noise[0]["logits"],
+                             "caches": noise[0]["caches"]}
+        del every, want, c16
+        if on_card:
+            torch.cuda.empty_cache()
+    dist.broadcast_object_list(noise, src=0)
+    out["unsharded_step"] = None
+    for r in range(world):
+        if not train or mesh.coords_of(r)["pod"] != 0:
+            continue
+        if rank == r:
+            out["unsharded_step"] = shard_step_readings(
+                model, draw, dev, batch, opt_cfg, p1, g1, spec_l, mesh,
+                noise[0]["grads"])
+            if on_card:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _noisy_reading(got: torch.Tensor, want: torch.Tensor, noise: float,
+                   tol: float) -> float:
+    """max |got - want| / (2 noise + tol max(1, max|want|) + tol |want|):
+    at most 1 passes. ``noise`` is the unsharded bf16 model's own largest
+    distance from its float32 twin there, allowed for each of the two bf16
+    runs (SHARD_GRAD_FLOOR's comment)."""
+    g, w = got.float(), want.float()
+    scale = max(1.0, w.abs().max().item())
+    return ((g - w).abs() / (2 * noise + tol * scale + tol * w.abs())
+            ).max().item()
+
+
+def _unsharded_step(model, params, opt_cfg, batch, dev):
+    """(state, metrics, gradients) of one unsharded Trainer step."""
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import adamw_init
+    seen = {}
+
+    def capture(g):
+        seen["g"] = g
+        return g
+
+    state, metrics = Trainer(model, opt_cfg, device=dev).make_step(
+        sync_fn=capture)({"params": params,
+                          "opt": adamw_init(params, opt_cfg)}, batch)
+    return state, metrics, seen["g"]
+
+
+def _unsharded_decode(model, params, batch, prompt: int, nd: int,
+                      n_patch: int):
+    """(logits (B, 1 + nd, V), caches) of the whole batch's prefill of
+    ``prompt`` tokens then ``nd`` decode_steps."""
+    with torch.no_grad():
+        lg, c = model.prefill(params, {**batch, "tokens":
+                                       batch["tokens"][:, :prompt]})
+        c = _window(c, nd)
+        outs = [lg]
+        for i in range(nd):
+            lg, c = model.decode_step(params, c, {
+                "token": batch["tokens"][:, prompt + i],
+                "pos": n_patch + prompt + i})
+            outs.append(lg)
+    return torch.cat(outs, dim=1), c
+
+
+def shard_family_twin(model, draw, dev, batch, prompt, nd, n_patch,
+                      opt_cfg, train) -> tuple[dict, torch.Tensor, dict]:
+    """The unsharded bf16 model's own error, once a family: the largest
+    distance from its float32 twin (the same weights widened) of each
+    gradient leaf of one step, of the decode's logits and of each cache
+    leaf (SHARD_GRAD_FLOOR's comment); and the bf16 decode's logits and
+    caches, on the whole batch."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import build_model
+
+    def dist_(a, b):
+        return {n: (x.float() - y.float()).abs().max().item() for (n, x), y
+                in zip(tree_util.named_leaves(a), tree_util.leaves(b))}
+
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    full = draw()
+    noise = {}
+    if train:
+        _, _, g16 = _unsharded_step(model, full, opt_cfg, batch, dev)
+        slots = _widen_(full)
+        _, _, g32 = _unsharded_step(model32, full, opt_cfg, batch, dev)
+        _narrow_(slots)
+        noise["grads"] = dist_(g16, g32)
+        del g16, g32
+    l16, c16 = _unsharded_decode(model, full, batch, prompt, nd, n_patch)
+    _widen_(full)
+    l32, c32 = _unsharded_decode(model32, full, batch, prompt, nd, n_patch)
+    noise["logits"] = (l16.float() - l32).abs().max().item()
+    noise["caches"] = dist_(c16, c32)
+    return noise, l16, c16
+
+
+def shard_decode_readings(every: list, want: torch.Tensor, c16: dict,
+                          noise: dict, cspec_of: dict, mesh, pctx) -> dict:
+    """Every rank's decode (``every``: (coords, logits, named caches)) against
+    its rows of the unsharded bf16 decode's logits ``want`` and its block of
+    the caches ``c16``: SHARD_BF16_TOL beyond twice the bf16 model's own
+    distance from its float32 twin (``noise``)."""
+    from repro_torch import tree as tree_util
+    per = SHARD["global_batch"] // pctx.dp_size
+    whole = dict(tree_util.named_leaves(c16))
+    out = {}
+    for r, (coords, lg, mine) in enumerate(every):
+        row = coords["pod"] * mesh.shape["data"] + coords["data"]
+        w = want[row * per:(row + 1) * per]
+        lg = lg.to(w.device)
+        reads = {}
+        for n, t in whole.items():
+            blk = _cut_cache(n, t, cspec_of[n], mesh, coords)
+            reads[n] = {"reading": _noisy_reading(
+                mine[n].to(t.device), blk, noise["caches"][n],
+                SHARD_BF16_TOL), "max_abs_err": (mine[n].to(t.device).float()
+                                                 - blk.float()).abs().max()
+                .item()}
+        out[r] = {"logits_reading": _noisy_reading(lg, w, noise["logits"],
+                                                   SHARD_BF16_TOL),
+                  "logits_max_abs_err": (lg.float() - w.float()).abs().max()
+                  .item(),
+                  "max_abs_logit": w.abs().max().item(),
+                  "cache_readings": reads}
+    return out
+
+
+def shard_step_readings(model, draw, dev, batch, opt_cfg, p1, g1, spec_l,
+                        mesh, grad_noise: dict) -> dict:
+    """This rank's blocks of one sharded step against the unsharded bf16
+    step on the whole batch: the loss, the updated leaves (SHARD_STEP_TOL)
+    and the synced gradients (SHARD_GRAD_TOL of each leaf's largest value
+    beyond twice the bf16 model's own distance from its float32 twin
+    there, ``grad_noise``; unrotated key biases against SHARD_GRAD_FLOOR
+    of the tree's largest gradient)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.parallel.sharding import Sharding
+
+    cfg = model.cfg
+    full = draw()
+    s0, m0, g16 = _unsharded_step(model, full, opt_cfg, batch, dev)
+    del full
+    top = max(t.float().abs().max().item() for t in tree_util.leaves(g16))
+    reads = {}
+    for (n, a), g, sp, b, gb in zip(
+            tree_util.named_leaves(p1), tree_util.leaves(g1), spec_l,
+            tree_util.leaves(s0["params"]), tree_util.leaves(g16)):
+        sh = Sharding(mesh, sp)
+        err = (g.float() - sh.shard(gb).float()).abs().max().item()
+        own = gb.float().abs().max().item()
+        r = reads[n] = {"param": _close_reading(a, sh.shard(b),
+                                                SHARD_STEP_TOL),
+                        "grad_max_abs_err": err, "grad_max": own,
+                        "grad_bf16_noise": grad_noise[n]}
+        if n.endswith(".bk") and (cfg.pos_embedding != "rope"
+                                  or ".xattn." in n):
+            r["zero_grad_share"] = max(own, g.float().abs().max().item()) / top
+        else:
+            r["grad_rel"] = max(0.0, err - 2 * grad_noise[n]) / max(own, 1e-30)
+    rel = {n: r["grad_rel"] for n, r in reads.items() if "grad_rel" in r}
+    return {"loss_unsharded": float(m0["loss"]),
+            "worst_param_reading": max(r["param"] for r in reads.values()),
+            "worst_grad_rel": max(rel.values()),
+            "worst_grad_leaf": max(rel, key=rel.get),
+            "worst_zero_grad_share": max(
+                (r["zero_grad_share"] for r in reads.values()
+                 if "zero_grad_share" in r), default=0.0),
+            "leaves": reads}
 
 
 def shard_worker(rank: int, port: int, out_dir: str,
@@ -3788,7 +4379,9 @@ def shard_worker(rank: int, port: int, out_dir: str,
     from repro_torch.parallel.sharding import (Sharding, Spec, gather_tree,
                                                is_spec, opt_state_specs,
                                                param_specs, spec_axes)
-    from repro_torch.parallel.tensor_parallel import gather_dims, sum_across
+    from repro_torch.parallel.tensor_parallel import (gather_dims,
+                                                      keep_gathered,
+                                                      sum_across)
     from repro_torch.runtime.fault import elastic_reshard
     from repro_torch.train.loop import Trainer, shardings_of
     from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
@@ -3871,7 +4464,7 @@ def shard_worker(rank: int, port: int, out_dir: str,
                                seq=SHARD["seq"], device=dev)
         shardings = shardings_of(model, pctx)
         plan, n_pod = plan_sharded_sync(state["params"], shardings, mesh)
-        want = shard_expected_combines(cfg, pctx, plan, n_pod)
+        want = shard_expected_combines(model, pctx, plan, n_pod)
         rec["plan"] = dict(collections.Counter(plan))
         rec["pod_buckets"] = n_pod
         rec["expected_combines"] = want
@@ -3970,7 +4563,7 @@ def shard_worker(rank: int, port: int, out_dir: str,
         toks = SyntheticTokens(cfg, batch=SHARD["global_batch"],
                                seq=pr + nd, seed=5, device=dev).batch_at(0)
         local = shard_batch(toks, pctx)["tokens"]
-        with torch.no_grad():
+        with torch.no_grad(), keep_gathered():
             lg, caches = model.prefill(state["params"],
                                        {"tokens": local[:, :pr]}, pctx)
             caches = tree_util.tree_map(lambda t: F.pad(
@@ -4188,6 +4781,23 @@ def shard_worker(rank: int, port: int, out_dir: str,
                                "y_reading": ry, "dx_reading": rdx,
                                "grad_readings": rg})
         lap("moe")
+
+        # ---- (e) the other families
+        del mmodel, layer0, p, x, x_all, dy_all, grads, y
+        if rank == 0:
+            del pf, xf, yf
+        if on_card:
+            torch.cuda.empty_cache()
+        rec["families"] = {}
+        for fam in SHARD_FAMILIES:
+            rec["families"][fam[0]] = shard_family(fam, rank, mesh, pctx,
+                                                   dev)
+            if on_card:
+                torch.cuda.empty_cache()
+            lap(fam[0])
+            # what has run so far, should a later family fail
+            (Path(out_dir) / f"shard_rank{rank}.partial.json").write_text(
+                json.dumps({**rec, "sections_s": sections}))
         rec["sections_s"] = sections
         (Path(out_dir) / f"shard_rank{rank}.json").write_text(
             json.dumps(rec))
@@ -4204,9 +4814,19 @@ def shard_phase(smi: str) -> dict:
     for f in OUT.glob("shard_rank*.json"):
         f.unlink()
     t0 = time.perf_counter()
-    torch.multiprocessing.start_processes(
-        shard_worker, args=(free_port(), str(OUT)), nprocs=SHARD["world"],
-        join=True, start_method="spawn")
+    # eight ranks share the card: blocks freed by one family are reused by
+    # the next without stranding reserved memory between them
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        torch.multiprocessing.start_processes(
+            shard_worker, args=(free_port(), str(OUT)),
+            nprocs=SHARD["world"], join=True, start_method="spawn")
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     wall = time.perf_counter() - t0
     ranks = [json.loads((OUT / f"shard_rank{r}.json").read_text())
              for r in range(SHARD["world"])]
@@ -4281,22 +4901,139 @@ def shard_phase(smi: str) -> dict:
             and m0["dx_reading"] <= 1
             and max(m0["grad_readings"].values()) <= 1):
         bad.append(f"(c) against emulate_ep: {m0}")
+    fam_lines = {}
+    for label, *_ in SHARD_FAMILIES:
+        fams = [r["families"][label] for r in ranks]
+        bad += shard_family_gates(label, fams, ranks)
+        fam_lines[label] = {
+            "arch": fams[0]["arch"], "cut": fams[0]["cut"],
+            "seq": fams[0]["seq"], "patches": fams[0]["patches"],
+            "bytes_rank0": fams[0]["bytes"],
+            "train": {r["rank"]: f.get("train") for r, f in
+                      zip(ranks, fams)},
+            "decode": {r["rank"]: f["decode"] for r, f in zip(ranks, fams)},
+            "kernel_checks": {r["rank"]: f["kernel_checks"]
+                              for r, f in zip(ranks, fams)},
+            "unsharded_decode": fams[0]["unsharded_decode"],
+            "unsharded_step": {r["rank"]: f["unsharded_step"] for r, f in
+                               zip(ranks, fams)
+                               if f["unsharded_step"] is not None},
+            "bf16_noise": fams[0]["bf16_noise"],
+            "section_s_rank0": r0["sections_s"][label]}
+    emit({"phase": "shard_families", "families": fam_lines,
+          "decode_steps": SHARD_FAMILY_DECODE,
+          "tolerances": {"step": SHARD_STEP_TOL, "grad": SHARD_GRAD_TOL,
+                         "key_bias_grad": SHARD_GRAD_FLOOR,
+                         "bf16": SHARD_BF16_TOL, "ssd_scan": SSD_TC_TIGHT,
+                         "flash_decode": FD_TOL_TEXT},
+          "card": smi})
     if bad:
         raise AssertionError("shard: " + "; ".join(bad))
     steps = len(r0["steps"])
+    f0 = [r0["families"][label] for label, *_ in SHARD_FAMILIES]
+    fam_combine = sum((f.get("train") or {}).get("combine_launches", 0)
+                      + f["decode"]["prefill_combine_launches"]
+                      + round(f["decode"]["combine_per_decode_step"]
+                              * f["decode"]["decode_steps"]) for f in f0)
+    fam_fd = sum(f["decode"]["flash_decode_launches"] for f in f0)
+    fam_ssd = sum((f.get("train") or {}).get("ssd_scan_launches", 0)
+                  + f["decode"]["prefill_ssd_scan_launches"] for f in f0)
+    by_fam = {label: f for (label, *_), f in zip(SHARD_FAMILIES, f0)}
     return {"combine": {
                 "path": "shard (rank 0): TP sums, ZeRO reduce-scatters, "
-                        "sync, norm, loss",
-                "launches": sum(s["combine_launches"] for s in r0["steps"]),
+                        "sync, norm, loss; every family's step and decode",
+                "launches": sum(s["combine_launches"] for s in r0["steps"])
+                + fam_combine,
                 "launches_per_step": want, "steps": steps,
-                "moe_layer_fwd_bwd": m0["combine_launches"]},
+                "moe_layer_fwd_bwd": m0["combine_launches"],
+                "families": {k: {"train_step": (f.get("train") or {}).get(
+                    "combine_launches"), "prefill": f["decode"][
+                    "prefill_combine_launches"], "per_decode_step": f[
+                    "decode"]["combine_per_decode_step"]}
+                    for k, f in by_fam.items()}},
             "flash_decode": {
-                "path": "shard decode (rank 0, 2 of 4 KV heads)",
-                "launches": r0["decode"]["flash_decode_launches"],
+                "path": "shard decode (rank 0, 2 of 4 KV heads); every "
+                        "family's decode on the rank's heads",
+                "launches": r0["decode"]["flash_decode_launches"] + fam_fd,
                 "launches_per_decode_step":
                     r0["decode"]["launches_per_decode_step"],
                 "reading": r0["decode"]["cache_check"]["reading"],
-                "max_abs_err": r0["decode"]["cache_check"]["max_abs_err"]}}
+                "max_abs_err": r0["decode"]["cache_check"]["max_abs_err"],
+                "families": {k: {"per_decode_step": f["decode"][
+                    "flash_decode_per_decode_step"], "checks": {
+                    n: c for n, c in f["kernel_checks"].items()
+                    if n.startswith("flash_decode")}}
+                    for k, f in by_fam.items()}},
+            "ssd_scan": {
+                "path": "shard (rank 0): mamba2-2.7b and zamba2-2.7b on 40 "
+                        "of 80 heads, a train step and a prefill",
+                "launches": fam_ssd,
+                "families": {k: {"train_step": (f.get("train") or {}).get(
+                    "ssd_scan_launches"), "prefill": f["decode"][
+                    "prefill_ssd_scan_launches"], "check": f[
+                    "kernel_checks"].get("ssd_scan")}
+                    for k, f in by_fam.items() if f["ssm_layers"]}}}
+
+
+def shard_family_gates(label: str, fams: list, ranks: list) -> list[str]:
+    """The gates of phase 28 (e) for one family, over every rank's record:
+    what failed, as text."""
+    bad = []
+    for r, f in zip(ranks, fams):
+        who = f"(e) {label} rank {r['rank']}"
+        b, d, n_ssm = f["bytes"], f["decode"], f["ssm_layers"]
+        if b["params"] != b["params_reckoned"] or \
+                b["caches"] != b["caches_reckoned"] or \
+                b.get("moments") != b.get("moments_reckoned"):
+            bad.append(f"{who}: bytes {b}")
+        t = f.get("train")
+        if t is not None:
+            if (t["combine_launches"] != t["expected_combines"]["total"]
+                    or t["ssd_scan_launches"] != 2 * n_ssm
+                    or t["flash_decode_launches"]
+                    or not math.isfinite(t["loss"])
+                    or not (t["blocks_equal_across_pods"]
+                            and t["replicated_equal_everywhere"])
+                    or t["leaves_moved"] < t["leaves_n"] // 2):
+                bad.append(f"{who} train step: " + json.dumps(
+                    {k: v for k, v in t.items() if k != "plan"}))
+        attn = {"mamba2": 0, "hybrid": 2, "mla": 0, "encdec": 4,
+                "vlm": 2}[label]
+        if (d["prefill_ssd_scan_launches"] != n_ssm
+                or d["flash_decode_per_decode_step"] != attn
+                or not d["finite"]
+                or d.get("latent_share", 0.5) != 0.5
+                or d.get("rope_share", 0.5) != 0.5
+                or (n_ssm and d["ssm_state_heads"] * SHARD["mesh"][2]
+                    != f["ssm_heads"])):
+            bad.append(f"{who} decode: {d}")
+        for name, c in f["kernel_checks"].items():
+            over = (c["rel_err_vs_ssd_chunked_tc"] > c["tol"]
+                    if name == "ssd_scan" else c["reading"] > 1)
+            if over:
+                bad.append(f"{who} {name}: {c}")
+        ud = fams[0]["unsharded_decode"][str(r["rank"])]
+        if ud["logits_reading"] > 1 or max(
+                c["reading"] for c in ud["cache_readings"].values()) > 1:
+            bad.append(f"{who} against the unsharded decode: {ud}")
+        s = f["unsharded_step"]
+        if t is not None and s is not None:
+            if not (abs(t["loss"] - s["loss_unsharded"]) < SHARD_STEP_TOL
+                    and s["worst_param_reading"] <= 1
+                    and s["worst_grad_rel"] <= SHARD_GRAD_TOL
+                    and s["worst_zero_grad_share"] <= SHARD_GRAD_FLOOR):
+                bad.append(f"{who} against the unsharded step: loss "
+                           f"{t['loss']} / {s['loss_unsharded']}, param "
+                           f"{s['worst_param_reading']}, grad "
+                           f"{s['worst_grad_rel']} ({s['worst_grad_leaf']}), "
+                           f"key biases {s['worst_zero_grad_share']}")
+    stepped = sum(f["unsharded_step"] is not None for f in fams)
+    if len(fams[0]["unsharded_decode"]) != len(fams) or stepped != (
+            4 if fams[0].get("train") else 0):
+        bad.append(f"(e) {label}: the unsharded decode read "
+                   f"{len(fams[0]['unsharded_decode'])} ranks, the step "
+                   f"{stepped}")
+    return bad
 
 
 # ------------------------------------------------ encoder-decoder and VLM
@@ -5786,6 +6523,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     shard = shard_phase(smi)
+    ssd_entry["shard"] = shard["ssd_scan"]
+    ssd_entry["launches_by_path"] = {"ssm_train": ssd_entry["launches"],
+                                     "shard": shard["ssd_scan"]["launches"]}
+    ssd_entry["launches"] += shard["ssd_scan"]["launches"]
 
     # ------------------------------------- 29-32. whisper and VLM phases
     gc.collect()

@@ -21,7 +21,11 @@ through the same ``flash_attention`` for train and prefill, and its
 *absorbed* form for decode, so the cache stays (kv_lora + rope) wide per
 token: ``{"c_kv": (B, S, kv_lora), "k_rope": (B, S, rope)}``. The absorbed
 decode is the reference's float32 einsums in torch ops, no kernel: the
-reference has none there either.
+reference has none there either. Under tensor parallelism every family's
+attention runs on this rank's heads: GQA's self-attention, whisper's
+cross-attention (its K/V from the replicated encoder output) and MLA,
+whose absorbed decode keeps the latent split over ``model`` as
+``cache_specs`` lays it out.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        dtype_of, init_norm, tp_active)
 from repro_torch.parallel.sharding import Sharding
 from repro_torch.parallel.tensor_parallel import (copy_to_model, gather_leaf,
+                                                  gather_over_model,
                                                   sum_over_model)
 
 
@@ -135,23 +140,26 @@ def _repeat_kv(t: torch.Tensor, Hp: int) -> torch.Tensor:
     return t.repeat_interleave(-(-Hp // K), dim=2)[:, :, :Hp]
 
 
-def _gqa_tp_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions, pctx,
-                specs: dict):
-    """This rank's query heads and their KV heads under GQA tensor
-    parallelism: ``q`` (B, S, Hp/tp, hd) from the local ``wq`` columns; ``k``,
-    ``v`` from the local ``wk``/``wv`` when the KV heads split, else (the
-    reference's ``mha_ize``) the whole KV computed replicated, repeated to
-    Hp heads, and this rank's block of them. The counterpart of the
-    reference's ``_qkv_hint``: the local head counts are checked."""
-    tp = pctx.tp_size
-    Hp, K = _padded_heads(cfg), cfg.n_kv_heads
+def _gqa_tp_q(p: dict, xc: torch.Tensor, cfg: ArchConfig, pctx):
+    """This rank's query heads (B, S, Hp/tp, hd) from the local ``wq``
+    columns, ``xc`` already copied to ``model``; no rotation."""
+    tp, Hp = pctx.tp_size, _padded_heads(cfg)
     if p["wq"].shape[1] != Hp // tp:
         raise ValueError(f"{cfg.name}: wq holds {p['wq'].shape[1]} heads on "
                          f"this rank, not {Hp} / {tp}")
-    xc = copy_to_model(x, pctx)
     q = torch.einsum("bsd,dhk->bshk", xc, p["wq"])
-    if cfg.attn_bias:
-        q = q + p["bq"]
+    return q + p["bq"] if cfg.attn_bias else q
+
+
+def _gqa_tp_kv(p: dict, x: torch.Tensor, cfg: ArchConfig, pctx, specs: dict,
+               xc: torch.Tensor | None = None):
+    """The KV heads of this rank's query heads, no rotation: from the local
+    ``wk``/``wv`` when the KV heads split (``x`` entering through ``xc``,
+    its copy to ``model``), else (the reference's ``mha_ize``) the whole KV
+    computed replicated from ``x``, repeated to Hp heads, and this rank's
+    block of them."""
+    tp = pctx.tp_size
+    Hp, K = _padded_heads(cfg), cfg.n_kv_heads
     if _mha_ize(cfg, tp):
         names = ("wk", "wv", "bk", "bv") if K % tp == 0 else ()
         pf = _gathered_over_model(p, specs, pctx, names)
@@ -162,14 +170,27 @@ def _gqa_tp_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions, pctx,
         blk = _model_block(Hp, pctx)
         k = copy_to_model(_repeat_kv(k, Hp), pctx)[:, :, blk]
         v = copy_to_model(_repeat_kv(v, Hp), pctx)[:, :, blk]
-    else:
-        if p["wk"].shape[1] != K // tp:
-            raise ValueError(f"{cfg.name}: wk holds {p['wk'].shape[1]} KV "
-                             f"heads on this rank, not {K} / {tp}")
-        k = torch.einsum("bsd,dhk->bshk", xc, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", xc, p["wv"])
-        if cfg.attn_bias:
-            k, v = k + p["bk"], v + p["bv"]
+        return k, v
+    if p["wk"].shape[1] != K // tp:
+        raise ValueError(f"{cfg.name}: wk holds {p['wk'].shape[1]} KV "
+                         f"heads on this rank, not {K} / {tp}")
+    xc = copy_to_model(x, pctx) if xc is None else xc
+    k = torch.einsum("bsd,dhk->bshk", xc, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xc, p["wv"])
+    if cfg.attn_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
+
+
+def _gqa_tp_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions, pctx,
+                specs: dict):
+    """This rank's query heads and their KV heads under GQA tensor
+    parallelism: ``q`` (B, S, Hp/tp, hd) from the local ``wq`` columns;
+    ``k``, ``v`` as :func:`_gqa_tp_kv` gives them. The counterpart of the
+    reference's ``_qkv_hint``: the local head counts are checked."""
+    xc = copy_to_model(x, pctx)
+    q = _gqa_tp_q(p, xc, cfg, pctx)
+    k, v = _gqa_tp_kv(p, x, cfg, pctx, specs, xc)
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -462,16 +483,34 @@ def init_cross_attention(gen, cfg: ArchConfig, d: int, device) -> dict:
     return init_gqa(gen, cfg, d, device)
 
 
-def cross_q(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def cross_q(p: dict, x: torch.Tensor, cfg: ArchConfig,
+            pctx=None) -> torch.Tensor:
     """The cross-attention query of the decoder stream x (B, S, d): (B, S,
-    H, hd), no rotation."""
+    H, hd), no rotation; under :func:`gqa_tp` this rank's heads."""
+    if gqa_tp(cfg, pctx):
+        return _gqa_tp_q(p, copy_to_model(x, pctx), cfg, pctx)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     return q + p["bq"] if cfg.attn_bias else q
 
 
-def cross_kv(p: dict, enc: torch.Tensor, cfg: ArchConfig) -> tuple:
+def _cross_whole(p: dict, cfg: ArchConfig, pctx, specs) -> dict:
+    """``p`` gathered whole over ``model`` where the heads do not split it
+    (the cross-attention then runs whole on every ``model`` rank)."""
+    if tp_active(pctx) and not gqa_tp(cfg, pctx):
+        return _gathered_over_model(p, specs, pctx, tuple(p))
+    return p
+
+
+def cross_kv(p: dict, enc: torch.Tensor, cfg: ArchConfig, pctx=None,
+             specs=None) -> tuple:
     """The cross-attention keys and values of the encoder output enc (B,
-    S_enc, d): each (B, S_enc, K, hd)."""
+    S_enc, d): each (B, S_enc, K, hd). Under :func:`gqa_tp` the KV heads
+    of this rank's query heads, ``enc`` (the same on every ``model`` rank)
+    entering them through a copy to ``model``. ``specs``: the layer's
+    ``xattn`` specs, on a sharded context."""
+    if gqa_tp(cfg, pctx):
+        return _gqa_tp_kv(p, enc, cfg, pctx, specs)
+    p = _cross_whole(p, cfg, pctx, specs)
     k = torch.einsum("bsd,dhk->bshk", enc, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", enc, p["wv"])
     if cfg.attn_bias:
@@ -479,25 +518,33 @@ def cross_kv(p: dict, enc: torch.Tensor, cfg: ArchConfig) -> tuple:
     return k, v
 
 
-def cross_attention(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                    kv: tuple) -> torch.Tensor:
+def cross_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, kv: tuple,
+                    pctx=None, specs=None) -> torch.Tensor:
     """The decoder's full-sequence attention to the encoder: every query
     position sees all of ``kv`` (``flash_attention(causal=False)``, padded
-    keys masked where S_enc is no multiple of the chunk)."""
-    out = flash_attention(cross_q(p, x, cfg), *kv, causal=False,
+    keys masked where S_enc is no multiple of the chunk). Under
+    :func:`gqa_tp` on this rank's heads, the partial ``wo`` products summed
+    over ``model``."""
+    p = _cross_whole(p, cfg, pctx, specs)
+    out = flash_attention(cross_q(p, x, cfg, pctx), *kv, causal=False,
                           q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return sum_over_model(out, pctx) if gqa_tp(cfg, pctx) else out
 
 
-def cross_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 kv: tuple) -> torch.Tensor:
+def cross_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, kv: tuple,
+                 pctx=None, specs=None) -> torch.Tensor:
     """One decoder token x (B, 1, d) against the whole encoder cache ``kv``
     (each (B, S_enc, K, hd)), never written after prefill: through
-    ``decode_attn`` at ``length = S_enc`` (the kernel on CUDA tensors)."""
-    q = cross_q(p, x, cfg)
+    ``decode_attn`` at ``length = S_enc`` (the kernel on CUDA tensors).
+    Under :func:`gqa_tp` the cache holds this rank's KV heads, as prefill
+    left it, and the kernel reads them for this rank's query heads."""
+    p = _cross_whole(p, cfg, pctx, specs)
+    q = cross_q(p, x, cfg, pctx)
     k, v = kv
     out = decode_attn(q[:, 0], k.contiguous(), v.contiguous(), k.shape[1])
-    return torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
+    return sum_over_model(out, pctx) if gqa_tp(cfg, pctx) else out
 
 
 # ------------------------------------------------------------------------ MLA
@@ -592,39 +639,74 @@ def mla_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
-               pos, pctx=None) -> tuple[torch.Tensor, dict]:
+               pos, pctx=None, specs=None) -> tuple[torch.Tensor, dict]:
     """Absorbed-form decode of x (B, 1, d): the new latent and rope key are
     written IN PLACE at ``pos`` (scalar or per-row; a write at ``pos >= S``
     is dropped, as in ``gqa_decode``); W_UK is folded into the query and
     W_UV applied after the attention, all in float32 in the reference's
-    order, and ``wo`` in the model dtype. Not under tensor parallelism:
-    the latent split over ``model`` waits for ROADMAP.md queue 1 item
-    6b."""
-    if tp_active(pctx):
-        raise NotImplementedError(
-            "MLA's absorbed decode with the latent over a 'model' axis is not "
-            "ported to repro_torch yet (ROADMAP.md queue 1 item 6b)")
+    order, and ``wo`` in the model dtype.
+
+    Under tensor parallelism the cache stays as ``cache_specs`` lays it out
+    and prefill writes it: ``c_kv`` (B, S, r/tp) and ``k_rope`` (B, S,
+    rope/tp), each where it divides, while the heads split over ``model``
+    through ``wq_b``/``wkv_b``/``wo`` (:func:`mla_tp`). A rank holds part
+    of both axes of each contraction over the latent, so: the absorbed
+    queries ``q_c`` and ``q_rope`` are gathered over ``model`` (every head),
+    the scores of every head on the rank's blocks are summed over ``model``,
+    the softmax runs on them whole, ``o_c`` on the rank's ``r`` block is
+    gathered over ``model`` and cut to the rank's heads, and ``w_uv`` and
+    the row-split ``wo`` end in a sum over ``model``. The cache is never
+    gathered. ``specs``: the layer's attention specs (read where the heads
+    do not split and the leaves are gathered whole)."""
     m = cfg.mla
+    tp, heads = tp_active(pctx), mla_tp(cfg, pctx)
+    if tp and not heads:
+        p = _gathered_over_model(p, specs, pctx, tuple(p))
     B = x.shape[0]
     pos_b = _pos_vec(pos, B, x.device)
     positions = pos_b[:, None]
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)          # (B,1,H,*)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, pctx)   # (B,1,H/tp,*)
     c_new, kr_new = _mla_latent(p, x, cfg, positions)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    _write_kv(c_kv, pos_b, c_new[:, 0])
-    _write_kv(k_rope, pos_b, kr_new[:, 0, 0, :])
+    r_cut = c_kv.shape[-1] != m.kv_lora_rank
+    m_cut = k_rope.shape[-1] != m.qk_rope_head_dim
+    c_new, kr_new = c_new[:, 0], kr_new[:, 0, 0, :]
+    if r_cut:
+        c_new = c_new[..., _model_block(m.kv_lora_rank, pctx)]
+    if m_cut:
+        kr_new = kr_new[..., _model_block(m.qk_rope_head_dim, pctx)]
+    _write_kv(c_kv, pos_b, c_new)
+    _write_kv(k_rope, pos_b, kr_new)
     w_uk = p["wkv_b"][..., :m.qk_nope_head_dim]            # (r,H,nope)
     w_uv = p["wkv_b"][..., m.qk_nope_head_dim:]            # (r,H,v)
     c32 = c_kv.float()
     q_c = torch.einsum("bshk,rhk->bhr", q_nope.float(), w_uk.float())
-    s = torch.einsum("bhr,bkr->bhk", q_c, c32)
-    s = s + torch.einsum("bshk,bmk->bhm", q_rope.float(), k_rope.float())
+    q_r = q_rope[:, 0].float()                             # (B,H,rope)
+    if heads:
+        q_c, q_r = (gather_over_model(t, 1, pctx) for t in (q_c, q_r))
+    if r_cut:
+        q_c = q_c[..., _model_block(m.kv_lora_rank, pctx)]
+    if m_cut:
+        q_r = q_r[..., _model_block(m.qk_rope_head_dim, pctx)]
+    s_c = torch.einsum("bhr,bkr->bhk", q_c, c32)
+    s_r = torch.einsum("bhm,bkm->bhk", q_r, k_rope.float())
+    if r_cut and m_cut:
+        s = sum_over_model(s_c + s_r, pctx)
+    else:
+        s = ((sum_over_model(s_c, pctx) if r_cut else s_c)
+             + (sum_over_model(s_r, pctx) if m_cut else s_r))
     s = s * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     mask = (torch.arange(c_kv.shape[1], device=x.device)[None, :]
             <= pos_b[:, None])
     s = torch.where(mask[:, None, :], s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
     o_c = torch.einsum("bhk,bkr->bhr", pr, c32)
+    if r_cut:
+        o_c = gather_over_model(o_c, -1, pctx)
+    if heads:
+        o_c = o_c[:, _model_block(cfg.n_heads, pctx)]
     o = torch.einsum("bhr,rhv->bhv", o_c, w_uv.float())
     out = torch.einsum("bhv,hvd->bd", o.to(x.dtype), p["wo"])[:, None, :]
+    if heads:
+        out = sum_over_model(out, pctx)
     return out, cache

@@ -69,12 +69,22 @@ def apply_norm(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def rmsnorm_gated(scale: torch.Tensor, x: torch.Tensor,
-                  gate: torch.Tensor) -> torch.Tensor:
+                  gate: torch.Tensor, pctx=None) -> torch.Tensor:
     """Mamba-2 gated RMSNorm: norm(x * silu(gate)) * scale, with the
     reference's casts: the gate's silu in float32, rounded to x's dtype,
-    the product widened to float32 for the norm."""
+    the product widened to float32 for the norm. Under tensor parallelism
+    ``x``, ``gate`` and ``scale`` are this rank's channels and the mean of
+    squares runs over all of them: the float32 sum of squares is summed
+    over ``model`` (both ways: each rank's norm reads the whole sum)."""
     xf = (x * silu(gate.float()).to(x.dtype)).float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if tp_active(pctx):
+        from repro_torch.parallel.tensor_parallel import (copy_to_model,
+                                                          sum_over_model)
+        ss = xf.square().sum(dim=-1, keepdim=True)
+        var = copy_to_model(sum_over_model(ss, pctx), pctx) / (
+            xf.shape[-1] * pctx.tp_size)
+    else:
+        var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
 
 

@@ -9,6 +9,16 @@ the chunk states; float32 inputs: float32 products throughout), on the CPU
 it runs :func:`ssd_chunked`, which rounds to the model dtype where the
 reference rounds. Its backward pass recomputes the chunked dual form in
 float32 and differentiates that, on both devices.
+
+On a sharded context the block runs split over ``model`` as the
+reference's ``param_specs`` lay it out: a rank holds its
+heads' columns of ``wz``/``wx``/``wdt``, ``conv_x`` and ``norm_scale``,
+their ``A_log``/``D``/``dt_bias`` and rows of ``out_proj``, and a block of
+``d_state`` of ``wB``/``wC`` and their convs. B and C are convolved on the
+rank's ``d_state`` block and then gathered whole over ``model``, so the SSD
+runs unchanged on the rank's heads with all of ``d_state`` and the state
+keeps the reference's layout, (B, h/tp, p, n); the gated norm's mean of
+squares and ``out_proj``'s product are sums over ``model``.
 """
 
 from __future__ import annotations
@@ -18,7 +28,11 @@ import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.ssd_scan.ops import ssd as ssd_kernel
-from repro_torch.models.layers import dense_init, dtype_of, rmsnorm_gated, silu
+from repro_torch.models.layers import (dense_init, dtype_of, rmsnorm_gated,
+                                       silu, tp_active)
+from repro_torch.parallel.tensor_parallel import (copy_to_model,
+                                                  gather_over_model,
+                                                  sum_over_model)
 
 
 def _dims(cfg: ArchConfig):
@@ -76,9 +90,14 @@ def _causal_conv(xBC, conv_w, conv_b, prev=None):
     return silu(out + conv_b), xp[:, -(W - 1):].clone()
 
 
-def _project(p, x, cfg, conv_prev=None):
+def _project(p, x, cfg, conv_prev=None, pctx=None):
     """Input projections + causal depthwise convs on x/B/C. Returns (z, xi,
-    B, C, dt_raw, conv_state)."""
+    B, C, dt_raw, conv_state). Under tensor parallelism (``pctx``) ``x``
+    enters the rank's columns through a copy to ``model``, and B and C,
+    convolved on the rank's ``d_state`` block, are gathered whole over
+    ``model``; the conv state keeps the block."""
+    if pctx is not None:
+        x = copy_to_model(x, pctx)
     z = x @ p["wz"]
     xc = x @ p["wx"]
     Bc = x @ p["wB"]
@@ -88,7 +107,27 @@ def _project(p, x, cfg, conv_prev=None):
     xc, sx = _causal_conv(xc, p["conv_x"], p["conv_bx"], prev[0])
     Bc, sB = _causal_conv(Bc, p["conv_B"], p["conv_bB"], prev[1])
     Cc, sC = _causal_conv(Cc, p["conv_C"], p["conv_bC"], prev[2])
+    if pctx is not None:
+        Bc, Cc = (gather_over_model(t, -1, pctx) for t in (Bc, Cc))
     return z, xc, Bc, Cc, dtr, (sx, sB, sC)
+
+
+def _local(cfg: ArchConfig, p: dict, pctx) -> tuple[int, int]:
+    """(d_inner, heads) of this rank's block. Under tensor parallelism the
+    reference's ``param_spec`` splits the heads (``wx``/``wz``/``wdt``
+    columns, the per-head vectors, ``out_proj`` rows) and ``d_state``
+    (``wB``/``wC`` and their convs) over ``model`` where they divide; the
+    port runs the block split and needs both to."""
+    s, d_in, nh, _ = _dims(cfg)
+    if not tp_active(pctx):
+        return d_in, nh
+    tp, gn = pctx.tp_size, s.n_groups * s.d_state
+    if p["wx"].shape[1] * tp != d_in or p["wB"].shape[1] * tp != gn:
+        raise ValueError(f"{cfg.name}: {nh} heads and d_state {gn} must "
+                         f"both split over {tp} '{pctx.tp_axis}' ranks; this "
+                         f"rank holds {tuple(p['wx'].shape)} of wx and "
+                         f"{tuple(p['wB'].shape)} of wB")
+    return d_in // tp, nh // tp
 
 
 def _segsum(x):
@@ -240,14 +279,18 @@ def ssd(x, dt, A, B, C, chunk: int):
     return SSDFunction.apply(x, dt, A, B, C, chunk)
 
 
-def mamba2_forward(p: dict, x: torch.Tensor, cfg: ArchConfig
+def mamba2_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, pctx=None
                    ) -> tuple[torch.Tensor, dict]:
     """Full-sequence SSD. x: (B,L,d). Returns (y, state) where state =
     {conv: (sx, sB, sC) each (B,W-1,C), ssm: (B,h,p,n)} for streaming
-    continuation."""
-    s, d_in, nh, conv_ch = _dims(cfg)
+    continuation. On a sharded context ``p`` holds this rank's blocks and
+    the state is this rank's block of it, as ``cache_specs`` lays it
+    out."""
+    tpc = pctx if tp_active(pctx) else None
+    s = cfg.ssm
+    d_in, nh = _local(cfg, p, tpc)
     Bsz, L = x.shape[0], x.shape[1]
-    z, xc, Bc, Cc, dtr, conv_state = _project(p, x, cfg)
+    z, xc, Bc, Cc, dtr, conv_state = _project(p, x, cfg, pctx=tpc)
     xi = xc.reshape(Bsz, L, nh, s.head_dim)
     B_ = Bc.reshape(Bsz, L, s.n_groups, s.d_state)
     C_ = Cc.reshape(Bsz, L, s.n_groups, s.d_state)
@@ -256,17 +299,25 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg: ArchConfig
     y, ssm_state = ssd(xi, dt, A, B_, C_, s.chunk)
     y = y + xi.float() * p["D"][:, None]
     y = y.reshape(Bsz, L, d_in).to(x.dtype)
-    y = rmsnorm_gated(p["norm_scale"], y, z)
-    return y @ p["out_proj"], {"conv": conv_state, "ssm": ssm_state}
+    y = rmsnorm_gated(p["norm_scale"], y, z, tpc)
+    y = y @ p["out_proj"]
+    if tpc is not None:
+        y = sum_over_model(y, tpc)
+    return y, {"conv": conv_state, "ssm": ssm_state}
 
 
-def mamba2_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, state: dict
-                  ) -> tuple[torch.Tensor, dict]:
-    """Single-token recurrent update. x: (B,1,d)."""
-    s, d_in, nh, conv_ch = _dims(cfg)
+def mamba2_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, state: dict,
+                  pctx=None) -> tuple[torch.Tensor, dict]:
+    """Single-token recurrent update. x: (B,1,d). On a sharded context
+    ``p`` and ``state`` are this rank's blocks, as :func:`mamba2_forward`
+    leaves them, and so is the new state."""
+    tpc = pctx if tp_active(pctx) else None
+    s = cfg.ssm
+    d_in, nh = _local(cfg, p, tpc)
     B1 = x.shape[0]
     z, xc, Bc, Cc, dtr, conv_state = _project(p, x, cfg,
-                                              conv_prev=state["conv"])
+                                              conv_prev=state["conv"],
+                                              pctx=tpc)
     xi = xc.reshape(B1, nh, s.head_dim)
     rep = nh // s.n_groups
     B_ = Bc.reshape(B1, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
@@ -280,5 +331,8 @@ def mamba2_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, state: dict
     y = torch.einsum("bhn,bhpn->bhp", C_.float(), new_state)
     y = y + xi.float() * p["D"][:, None]
     y = y.reshape(B1, 1, d_in).to(x.dtype)
-    y = rmsnorm_gated(p["norm_scale"], y, z)
-    return y @ p["out_proj"], {"conv": conv_state, "ssm": new_state}
+    y = rmsnorm_gated(p["norm_scale"], y, z, tpc)
+    y = y @ p["out_proj"]
+    if tpc is not None:
+        y = sum_over_model(y, tpc)
+    return y, {"conv": conv_state, "ssm": new_state}

@@ -49,20 +49,6 @@ def _refuse_encdec(cfg: ArchConfig) -> None:
                          "with EncDecLM (or build_model)")
 
 
-def _refuse_sharded(cfg: ArchConfig, pctx,
-                    what: str = "Mamba-2/hybrid models") -> None:
-    """Some families run on whole parameters only (ROADMAP.md queue 1 item
-    6b): Mamba-2 and hybrid models, as the reference shards ``wB``/``wC``
-    over ``d_state`` under a ``model`` axis, so the SSD contraction needs
-    its own sum; the encoder-decoder and the VLM patch prefix, whose
-    sharded paths no slice has taken to the card yet."""
-    if pctx is not None and pctx.sharded:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} on a sharded mesh (a '{pctx.tp_axis}' "
-            "axis) are not ported to repro_torch yet (ROADMAP.md queue 1 "
-            "item 6b)")
-
-
 # ---------------------------------------------------------------- sharding
 def _is_expert_stack(names: tuple[str, ...], leaf) -> bool:
     return (len(names) == 2 and names[0] == "ffn" and leaf.dim() == 3
@@ -84,6 +70,9 @@ def _structure_specs(what: str, cfg: ArchConfig, kind: str, sizes: tuple,
         if cfg.mtp_depth:
             tree["mtp"] = {"proj": torch.empty(
                 (2 * cfg.d_model, cfg.d_model), device=meta)}
+        if cfg.encdec is not None:
+            tree["enc_pos"] = torch.empty(
+                (cfg.encdec.encoder_seq, cfg.d_model), device=meta)
     return param_specs(tree, cfg, pctx)
 
 
@@ -94,29 +83,35 @@ def _key(pctx) -> tuple:
 
 
 def layer_specs(cfg: ArchConfig, kind: str, pctx):
-    """The specs of one block of ``kind`` ("dense", "moe", "ssm"): the
+    """The specs of one block of ``kind`` ("dense", "moe", "ssm",
+    "encoder", "decoder"): the
     per-layer specs of a stack's leaves (their stack dims stripped), read
     from the block's structure on the meta device."""
     return _structure_specs("block", cfg, kind, *_key(pctx))
 
 
 def top_specs(cfg: ArchConfig, pctx) -> dict:
-    """The specs of ``{"embed": ..., "mtp": {"proj"}}`` (the latter with an
-    MTP head)."""
+    """The specs of ``{"embed": ..., "mtp": {"proj"}, "enc_pos"}`` (``mtp``
+    with an MTP head, ``enc_pos`` for an encoder-decoder)."""
     return _structure_specs("top", cfg, "", *_key(pctx))
 
 
-def _unfsdp(p: dict, cfg: ArchConfig, pctx, kind: str) -> tuple[dict, dict]:
+def _unfsdp(p: dict, cfg: ArchConfig, pctx, kind: str,
+            part: str | None = None) -> tuple[dict, dict]:
     """ZeRO-3 for one layer (the reference's ``_unfsdp`` with
     ``gather_weights``): its leaves sharded over ``data`` gathered whole
     over ``data`` at the layer's entry (a reduce-scatter of their gradient
     in backward), ``model`` blocks kept. Expert stacks stay in their EP
     layout, which the MoE layer consumes as it is. Returns the layer's
     leaves and their specs (None on an unsharded context), which the
-    attention reads where it gathers its ``model`` blocks."""
+    attention reads where it gathers its ``model`` blocks. With ``part``,
+    ``p`` is that subtree of a block of ``kind`` (a decoder layer's
+    ``xattn``)."""
     if pctx is None or not pctx.sharded:
         return p, None
     specs = layer_specs(cfg, kind, pctx)
+    if part is not None:
+        specs = specs[part]
     out = []
     for (name, leaf), spec in zip(tree_util.named_leaves(p),
                                   tree_util.leaves(specs, is_leaf=is_spec),
@@ -140,8 +135,9 @@ def _hint(x, cfg: ArchConfig, pctx):
 
 def _gathered_top(params: dict, cfg: ArchConfig, pctx) -> tuple[dict, dict]:
     """The embedding (and the MTP projection) gathered whole over every
-    axis its spec names at use (the vocab-parallel loss is ROADMAP.md queue
-    1 item 6b): ``(embed, mtp)``."""
+    axis its spec names at use, as the reference's whole-table math reads
+    them (GSPMD partitions that math; the port gathers): ``(embed,
+    mtp)``."""
     embed, mtp = params["embed"], params.get("mtp")
     if pctx is None or not pctx.sharded:
         return embed, mtp
@@ -194,13 +190,13 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
     them again. ``pctx`` reaches the MoE layer (expert
     parallelism over its mesh's ``data`` axis) and, on a sharded mesh,
     every layer: ``p`` holds this rank's blocks (``param_specs``), the
-    layer's ``data`` shards are gathered at its entry and attention and
-    the FFN run split over ``model``."""
+    layer's ``data`` shards are gathered at its entry and attention, the
+    FFN and the Mamba-2 block run split over ``model``."""
     p, specs = _unfsdp(p, cfg, pctx, kind)
     x = _hint(x, cfg, pctx)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
-        y, state = ssm_lib.mamba2_forward(p["ssm"], h, cfg)
+        y, state = ssm_lib.mamba2_forward(p["ssm"], h, cfg, pctx)
         return x + y, state
     a_specs = None if specs is None else specs["attn"]
     if cfg.mla is not None:
@@ -211,9 +207,10 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
                                       causal=causal, pctx=pctx, specs=a_specs)
     x = x + y
     if kind == "decoder":
+        x_specs = None if specs is None else specs["xattn"]
         hx = apply_norm(p["ln_x"], x, cfg)
-        kv = attn.cross_kv(p["xattn"], cross, cfg)
-        x = x + attn.cross_attention(p["xattn"], hx, cfg, kv)
+        kv = attn.cross_kv(p["xattn"], cross, cfg, pctx, x_specs)
+        x = x + attn.cross_attention(p["xattn"], hx, cfg, kv, pctx, x_specs)
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, pctx), cache
 
@@ -222,23 +219,26 @@ def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos,
                  pctx=None, cross_kv=None):
     """One token per row through one block; a ``"decoder"`` block attends
     to its layer's encoder cache ``cross_kv`` (k, v) after its
-    self-attention."""
+    self-attention. On a sharded mesh ``cache`` (and ``cross_kv``) are this
+    rank's blocks, as prefill leaves them."""
     p, specs = _unfsdp(p, cfg, pctx, kind)
     x = _hint(x, cfg, pctx)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
-        y, state = ssm_lib.mamba2_decode(p["ssm"], h, cfg, cache)
+        y, state = ssm_lib.mamba2_decode(p["ssm"], h, cfg, cache, pctx)
         return x + y, state
+    a_specs = None if specs is None else specs["attn"]
     if cfg.mla is not None:
-        y, cache = attn.mla_decode(p["attn"], h, cfg, cache, pos, pctx)
+        y, cache = attn.mla_decode(p["attn"], h, cfg, cache, pos, pctx,
+                                   specs=a_specs)
     else:
         y, cache = attn.gqa_decode(p["attn"], h, cfg, cache, pos, pctx,
-                                   specs=None if specs is None
-                                   else specs["attn"])
+                                   specs=a_specs)
     x = x + y
     if kind == "decoder":
         hx = apply_norm(p["ln_x"], x, cfg)
-        x = x + attn.cross_decode(p["xattn"], hx, cfg, cross_kv)
+        x = x + attn.cross_decode(p["xattn"], hx, cfg, cross_kv, pctx,
+                                  None if specs is None else specs["xattn"])
     h2 = apply_norm(p["ln2"], x, cfg)
     return x + _ffn(p, h2, cfg, kind, pctx), cache
 
@@ -327,7 +327,8 @@ class LM:
     are keyed ``"dense"`` and ``"moe"`` likewise. With ``cfg.mla`` every
     block attends by MLA and caches its latent; with ``cfg.mtp_depth`` the
     tree holds DeepSeek-V3's MTP head (``mtp``), which only training uses,
-    as in the reference."""
+    as in the reference. On a sharded mesh a VLM's ``patches`` are this
+    rank's rows, as ``batch_specs`` splits them over the batch axes."""
     cfg: ArchConfig
 
     def __post_init__(self):
@@ -370,10 +371,6 @@ class LM:
     def _mtp_kind(self) -> str:
         return "moe" if self.cfg.moe is not None else "dense"
 
-    def _refuse_sharded_vlm(self, pctx) -> None:
-        if self.cfg.vision is not None:
-            _refuse_sharded(self.cfg, pctx, "the VLM patch prefix")
-
     @property
     def _n_patches(self) -> int:
         return 0 if self.cfg.vision is None else self.cfg.vision.n_patches
@@ -410,7 +407,6 @@ class LM:
         mesh ``params`` are this rank's blocks and ``batch`` its rows; the
         loss is the mean over those rows, the same on its ``model``
         ranks."""
-        self._refuse_sharded_vlm(pctx)
         embed, _ = _gathered_top(params, self.cfg, pctx)
         x, positions = self._inputs(embed, batch)
         h, _ = self._trunk(params, x, positions, pctx)
@@ -450,7 +446,6 @@ class LM:
         the rows are this rank's and the caches its blocks, laid out as
         ``cache_specs`` says. A VLM's caches hold the patch positions
         first."""
-        self._refuse_sharded_vlm(pctx)
         embed, _ = _gathered_top(params, self.cfg, pctx)
         x, positions = self._inputs(embed, batch)
         h, caches = self._trunk(params, x, positions, pctx)
@@ -463,7 +458,6 @@ class LM:
         in place; on a sharded mesh, this rank's rows and cache blocks, as
         :meth:`prefill` leaves them."""
         cfg = self.cfg
-        self._refuse_sharded_vlm(pctx)
         embed, _ = _gathered_top(params, cfg, pctx)
         tok = batch["token"][:, None]
         pos = batch["pos"]
@@ -511,7 +505,10 @@ class LM:
 @dataclasses.dataclass(frozen=True)
 class SSMLM:
     """Mamba-2 LM (attention-free): ``init``, ``loss_fn``, ``prefill``,
-    ``init_cache`` and ``decode_step``."""
+    ``init_cache`` and ``decode_step``. On a sharded mesh ``params`` are
+    this rank's blocks, ``batch`` its rows and the states its blocks: each
+    layer's ``data`` shards gathered at its entry and the block split over
+    ``model`` by heads (:mod:`repro_torch.models.ssm`)."""
     cfg: ArchConfig
 
     def __post_init__(self):
@@ -530,42 +527,44 @@ class SSMLM:
             "final_norm": init_norm(cfg, cfg.d_model, device),
         }
 
-    def _trunk(self, params: dict, tokens):
+    def _trunk(self, params: dict, embed: dict, tokens, pctx):
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = embed_tokens(embed, tokens, cfg)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         x, states = stack_forward(params["stack"], x, cfg, "ssm",
-                                  positions=positions)
+                                  positions=positions, pctx=pctx)
         return apply_norm(params["final_norm"], x, cfg), states
 
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
         """Mean next-token cross entropy of ``batch`` (``tokens``,
-        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`, but not
-        sharded (ROADMAP.md queue 1 item 6b)."""
-        _refuse_sharded(self.cfg, pctx)
-        h, _ = self._trunk(params, batch["tokens"])
-        return lm_loss(params["embed"], h[:, :-1], batch["labels"][:, 1:],
-                       self.cfg)
+        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`."""
+        embed, _ = _gathered_top(params, self.cfg, pctx)
+        h, _ = self._trunk(params, embed, batch["tokens"], pctx)
+        return lm_loss(embed, h[:, :-1], batch["labels"][:, 1:], self.cfg)
 
     def prefill(self, params: dict, batch: dict, pctx=None):
         """Logits of the last position (B, 1, V) float32 and the states
         ``{"conv": (sx, sB, sC) each (L, B, W-1, C), "ssm": (L, B, h, p,
-        n) float32}`` to continue from."""
-        _refuse_sharded(self.cfg, pctx)
-        h, states = self._trunk(params, batch["tokens"])
-        return logits(params["embed"], h[:, -1:, :], self.cfg), states
+        n) float32}`` to continue from; on a sharded mesh this rank's rows
+        and blocks (channels and heads over ``model``, as ``cache_specs``
+        says)."""
+        embed, _ = _gathered_top(params, self.cfg, pctx)
+        h, states = self._trunk(params, embed, batch["tokens"], pctx)
+        return logits(embed, h[:, -1:, :], self.cfg), states
 
-    def decode_step(self, params: dict, states: dict, batch: dict):
+    def decode_step(self, params: dict, states: dict, batch: dict,
+                    pctx=None):
         """One token per row. ``batch``: ``token`` (B,) and ``pos`` (unused
         by the recurrence; kept for the engine's signature). Returns
         (logits (B,1,V) float32, states), the states updated in place."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], batch["token"][:, None], cfg)
+        embed, _ = _gathered_top(params, cfg, pctx)
+        x = embed_tokens(embed, batch["token"][:, None], cfg)
         x, _ = stack_decode(params["stack"], x, cfg, "ssm", caches=states,
-                            pos=batch["pos"])
+                            pos=batch["pos"], pctx=pctx)
         h = apply_norm(params["final_norm"], x, cfg)
-        return logits(params["embed"], h, cfg), states
+        return logits(embed, h, cfg), states
 
     def init_cache(self, batch_size: int, seq_len: int, device=None) -> dict:
         """Zero states for ``batch_size`` rows (``seq_len`` is unused: the
@@ -603,7 +602,9 @@ class HybridLM:
     shared attention+MLP block (a single weight copy, one KV cache per
     use). ``init``, ``loss_fn``, ``prefill``, ``init_cache`` and
     ``decode_step``, with the reference's tree: ``groups`` leaves are
-    (G, group_size, ...), ``shared`` is one dense block."""
+    (G, group_size, ...), ``shared`` is one dense block. On a sharded mesh
+    the SSM layers run as :class:`SSMLM`'s do and the shared block as the
+    dense LM's (TP over ``model``, ZeRO-3 over ``data``)."""
     cfg: ArchConfig
 
     def __post_init__(self):
@@ -640,25 +641,25 @@ class HybridLM:
             "final_norm": init_norm(cfg, cfg.d_model, device),
         }
 
-    def _trunk(self, params: dict, tokens):
+    def _trunk(self, params: dict, embed: dict, tokens, pctx):
         """Final-normed hidden states and, per group, its SSM states (leaves
         (group_size, ...)) and the shared block's KV cache. Under autograd
         the SSM layers are recomputed one by one in backward (inside
         ``stack_forward``) and the shared block alone, as the reference
         wraps it in ``jax.checkpoint``."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = embed_tokens(embed, tokens, cfg)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
 
         def shared(h):
             return block_forward(params["shared"], h, cfg, "dense",
-                                 positions=positions)
+                                 positions=positions, pctx=pctx)
 
         ssm_states, attn_caches = [], []
         for group_p in _unstack(params["groups"], self.n_groups):
             x, states = stack_forward(group_p, x, cfg, "ssm",
-                                      positions=positions)
+                                      positions=positions, pctx=pctx)
             if torch.is_grad_enabled():
                 x, cache = checkpoint(shared, x, use_reentrant=False)
             else:
@@ -670,42 +671,44 @@ class HybridLM:
 
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
         """Mean next-token cross entropy of ``batch`` (``tokens``,
-        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`, but not
-        sharded (ROADMAP.md queue 1 item 6b)."""
-        _refuse_sharded(self.cfg, pctx)
-        h, _, _ = self._trunk(params, batch["tokens"])
-        return lm_loss(params["embed"], h[:, :-1], batch["labels"][:, 1:],
-                       self.cfg)
+        ``labels`` (B, S) int); ``pctx`` as in :meth:`LM.loss_fn`."""
+        embed, _ = _gathered_top(params, self.cfg, pctx)
+        h, _, _ = self._trunk(params, embed, batch["tokens"], pctx)
+        return lm_loss(embed, h[:, :-1], batch["labels"][:, 1:], self.cfg)
 
     def prefill(self, params: dict, batch: dict, pctx=None):
         """Logits of the last position (B, 1, V) float32 and the caches
         ``{"ssm": {"conv": (sx, sB, sC) each (G, gs, B, W-1, C), "ssm":
         (G, gs, B, h, p, n) float32}, "attn": {"k", "v"} each (G, B, S, K,
-        hd)}``."""
-        _refuse_sharded(self.cfg, pctx)
-        h, ssm_states, attn_caches = self._trunk(params, batch["tokens"])
-        return logits(params["embed"], h[:, -1:, :], self.cfg), {
+        hd)}``; on a sharded mesh this rank's rows and blocks, as
+        ``cache_specs`` lays them out."""
+        embed, _ = _gathered_top(params, self.cfg, pctx)
+        h, ssm_states, attn_caches = self._trunk(params, embed,
+                                                 batch["tokens"], pctx)
+        return logits(embed, h[:, -1:, :], self.cfg), {
             "ssm": _stack_trees(ssm_states),
             "attn": _stack_trees(attn_caches)}
 
-    def decode_step(self, params: dict, caches: dict, batch: dict):
+    def decode_step(self, params: dict, caches: dict, batch: dict,
+                    pctx=None):
         """One token per row. ``batch``: ``token`` (B,) and ``pos`` (scalar or
         (B,)). Returns (logits (B,1,V) float32, caches), the caches updated
         in place: group g's SSM states and KV cache are written through
         views of slice ``[g]``."""
         cfg = self.cfg
         pos = batch["pos"]
-        x = embed_tokens(params["embed"], batch["token"][:, None], cfg)
+        embed, _ = _gathered_top(params, cfg, pctx)
+        x = embed_tokens(embed, batch["token"][:, None], cfg)
         for g, group_p in enumerate(_unstack(params["groups"],
                                              self.n_groups)):
-            x, _ = stack_decode(group_p, x, cfg, "ssm", pos=pos,
+            x, _ = stack_decode(group_p, x, cfg, "ssm", pos=pos, pctx=pctx,
                                 caches=tree_util.tree_map(lambda t: t[g],
                                                           caches["ssm"]))
             x, _ = block_decode(params["shared"], x, cfg, "dense", pos=pos,
-                                cache={k: v[g] for k, v in
-                                       caches["attn"].items()})
+                                pctx=pctx, cache={k: v[g] for k, v in
+                                                  caches["attn"].items()})
         h = apply_norm(params["final_norm"], x, cfg)
-        return logits(params["embed"], h, cfg), caches
+        return logits(embed, h, cfg), caches
 
     def init_cache(self, batch_size: int, seq_len: int, device=None) -> dict:
         """Zero caches for ``batch_size`` rows and a ``seq_len`` window,
@@ -737,8 +740,12 @@ class EncDecLM:
     d). ``init``, ``loss_fn``, ``prefill``, ``init_cache`` and
     ``decode_step``, with the reference's tree: ``enc_pos`` (S_enc, d),
     ``encoder`` and ``decoder`` stacks (a decoder block adds ``ln_x`` and
-    ``xattn``), ``enc_norm`` and ``final_norm``. Whole parameters only
-    (ROADMAP.md queue 1 item 6b)."""
+    ``xattn``), ``enc_norm`` and ``final_norm``. On a sharded mesh
+    ``enc_pos`` and the learned ``positions`` (split on ``d``) are gathered
+    at use, the encoder runs the dense TP path without the causal mask,
+    and each decoder layer's ``xattn`` heads split over ``model``: its K/V
+    from the encoder output (the same on every ``model`` rank) enter them
+    through a copy to ``model``, and ``cross`` caches this rank's heads."""
     cfg: ArchConfig
 
     def __post_init__(self):
@@ -764,55 +771,66 @@ class EncDecLM:
             "final_norm": init_norm(cfg, cfg.d_model, device),
         }
 
-    def _encode(self, params: dict, frames):
+    def _enc_pos(self, params: dict, pctx):
+        """``enc_pos``, gathered whole on a sharded mesh."""
+        if pctx is None or not pctx.sharded:
+            return params["enc_pos"]
+        return gather_leaf(params["enc_pos"], Sharding(
+            pctx.mesh, top_specs(self.cfg, pctx)["enc_pos"]), pctx)
+
+    def _encode(self, params: dict, frames, pctx):
         """The normed encoder output (B, S_enc, d): frames rounded to the
         model dtype plus ``enc_pos``, through the non-causal stack."""
         cfg = self.cfg
-        x = frames.to(dtype_of(cfg)) + params["enc_pos"]
+        x = frames.to(dtype_of(cfg)) + self._enc_pos(params, pctx)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         x, _ = stack_forward(params["encoder"], x, cfg, "encoder",
-                             positions=positions, causal=False)
+                             positions=positions, pctx=pctx, causal=False)
         return apply_norm(params["enc_norm"], x, cfg)
 
-    def _decode_stack(self, params: dict, tokens, enc):
+    def _decode_stack(self, params: dict, embed: dict, tokens, enc, pctx):
         """Final-normed decoder states and the self-attention caches; each
         layer computes its cross K/V from ``enc``."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = embed_tokens(embed, tokens, cfg)
         B, S = x.shape[:2]
         if cfg.pos_embedding == "learned":
-            x = x + params["embed"]["positions"][:S]
+            x = x + embed["positions"][:S]
         positions = torch.arange(S, device=x.device).expand(B, S)
         x, caches = stack_forward(params["decoder"], x, cfg, "decoder",
-                                  positions=positions, cross=enc)
+                                  positions=positions, pctx=pctx, cross=enc)
         return apply_norm(params["final_norm"], x, cfg), caches
 
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
         """Mean next-token cross entropy of ``batch`` (``frames`` (B, S_enc,
-        d); ``tokens``, ``labels`` (B, S) int)."""
-        _refuse_sharded(self.cfg, pctx, "encoder-decoder models")
-        enc = self._encode(params, batch["frames"])
-        h, _ = self._decode_stack(params, batch["tokens"], enc)
-        return lm_loss(params["embed"], h[:, :-1], batch["labels"][:, 1:],
-                       self.cfg)
+        d); ``tokens``, ``labels`` (B, S) int); ``pctx`` as in
+        :meth:`LM.loss_fn`."""
+        embed, _ = _gathered_top(params, self.cfg, pctx)
+        enc = self._encode(params, batch["frames"], pctx)
+        h, _ = self._decode_stack(params, embed, batch["tokens"], enc, pctx)
+        return lm_loss(embed, h[:, :-1], batch["labels"][:, 1:], self.cfg)
 
     def prefill(self, params: dict, batch: dict, pctx=None):
         """Logits of the last position (B, 1, V) float32 and the caches
         ``{"self": {"k", "v"} each (L, B, S, K, hd), "cross": (k, v) each
         (L, B, S_enc, K, hd)}``, the cross K/V computed per layer from the
-        encoder output."""
-        _refuse_sharded(self.cfg, pctx, "encoder-decoder models")
+        encoder output; on a sharded mesh this rank's rows and KV heads."""
         cfg = self.cfg
-        enc = self._encode(params, batch["frames"])
-        h, caches = self._decode_stack(params, batch["tokens"], enc)
+        embed, _ = _gathered_top(params, cfg, pctx)
+        enc = self._encode(params, batch["frames"], pctx)
+        h, caches = self._decode_stack(params, embed, batch["tokens"], enc,
+                                       pctx)
         xattn = params["decoder"]["xattn"]
-        kvs = [attn.cross_kv(tree_util.tree_map(lambda t: t[i], xattn), enc,
-                             cfg) for i in range(xattn["wk"].shape[0])]
+        kvs = []
+        for i in range(xattn["wk"].shape[0]):
+            p_i, specs = _unfsdp(tree_util.tree_map(lambda t: t[i], xattn),
+                                 cfg, pctx, "decoder", part="xattn")
+            kvs.append(attn.cross_kv(p_i, enc, cfg, pctx, specs))
         cross = (torch.stack([k for k, _ in kvs]),
                  torch.stack([v for _, v in kvs]))
-        return logits(params["embed"], h[:, -1:, :], cfg), {"self": caches,
-                                                           "cross": cross}
+        return logits(embed, h[:, -1:, :], cfg), {"self": caches,
+                                                  "cross": cross}
 
     def decode_step(self, params: dict, caches: dict, batch: dict,
                     pctx=None):
@@ -820,16 +838,15 @@ class EncDecLM:
         (B,)). Returns (logits (B,1,V) float32, caches): the self caches
         updated in place, the cross caches read whole (``decode_attn`` at
         length S_enc) and left as they are."""
-        _refuse_sharded(self.cfg, pctx, "encoder-decoder models")
         cfg = self.cfg
-        embed = params["embed"]
+        embed, _ = _gathered_top(params, cfg, pctx)
         x = embed_tokens(embed, batch["token"][:, None], cfg)
         pos = batch["pos"]
         if cfg.pos_embedding == "learned":
             pos_b = attn._pos_vec(pos, x.shape[0], x.device)
             x = x + embed["positions"][pos_b][:, None, :]
         x, _ = stack_decode(params["decoder"], x, cfg, "decoder",
-                            caches=caches["self"], pos=pos,
+                            caches=caches["self"], pos=pos, pctx=pctx,
                             cross_kv=caches["cross"])
         h = apply_norm(params["final_norm"], x, cfg)
         return logits(embed, h, cfg), caches

@@ -12,8 +12,9 @@ reducing activations, so a sharded model always gathers its ``data``-
 sharded weights at use: numerically what the reference does with
 ``gather_weights=True``, and the port has no such switch (ROADMAP.md
 queue 3). Nor has it the reference's ``pp_axis``, which no code there
-reads either. ``seq_shard`` (sequence parallelism) waits for ROADMAP.md
-queue 1 item 6b.
+reads either. Every model family runs on a sharded context; ``seq_shard``
+(sequence parallelism), the one part of ROADMAP.md queue 1 item 6b left,
+raises: its only user in the reference is the dry run's flags (item 9).
 """
 
 from __future__ import annotations

@@ -13,7 +13,11 @@ reference's specs are written out here, in the style of
 * :class:`GatherLeaf` — a weight's blocks gathered at use: all-gather
   forward; backward a reduce-scatter (sum) over the batch axes, whose ranks
   saw different rows, and this rank's own block over ``model``, whose
-  ranks computed the same thing.
+  ranks computed the same thing;
+* :class:`GatherOverModel` — an activation's blocks gathered over
+  ``model``: all-gather forward; backward a reduce-scatter over ``model``,
+  whose ranks each used the whole for their own heads (Mamba-2's B and C,
+  computed on this rank's ``d_state`` block, enter every rank's heads).
 
 Every sum is an all-gather of the parts plus ``combine`` over them in rank
 order (:func:`repro_torch.kernels.allreduce_combine.ops.combine_parts`:
@@ -25,6 +29,8 @@ replicas.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -68,12 +74,37 @@ class SumOverModel(torch.autograd.Function):
         return g, None
 
 
+class GatherOverModel(torch.autograd.Function):
+    """``apply(x, dim, group)``: the blocks of ``x`` along ``dim``
+    concatenated in group-rank order forward; backward the gradient summed
+    over ``group`` and this rank's block of it (a reduce-scatter by
+    ``combine``)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.dim
+        g = reduce_scatter_combine(g.movedim(d, 0).contiguous(), ctx.group)
+        return g.movedim(0, d).contiguous(), None, None
+
+
 def copy_to_model(x: torch.Tensor, pctx) -> torch.Tensor:
     return CopyToModel.apply(x, pctx.mesh.group(pctx.tp_axis))
 
 
 def sum_over_model(x: torch.Tensor, pctx) -> torch.Tensor:
     return SumOverModel.apply(x, pctx.mesh.group(pctx.tp_axis))
+
+
+def gather_over_model(x: torch.Tensor, dim: int, pctx) -> torch.Tensor:
+    """This rank's block of an activation along ``dim`` gathered whole over
+    ``model`` (see :class:`GatherOverModel`)."""
+    return GatherOverModel.apply(x, dim % x.dim(),
+                                 pctx.mesh.group(pctx.tp_axis))
 
 
 # ------------------------------------------------------------ weight blocks
@@ -87,6 +118,8 @@ def _check_order(sharding, axes) -> None:
 
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = all_gather_stack(x, group)               # (k, *x.shape)
+    if dim == 0:            # the parts already lie in order: no copy
+        return parts.reshape((-1,) + tuple(x.shape[1:]))
     return torch.cat(parts.unbind(0), dim=dim)
 
 
@@ -134,15 +167,50 @@ class GatherLeaf(torch.autograd.Function):
         return g.contiguous(), None, None, None
 
 
+#: the gathered leaves kept by :func:`keep_gathered`, while one is open
+_kept: dict | None = None
+
+
+@contextlib.contextmanager
+def keep_gathered():
+    """Within the block, a leaf gathered with no gradient taken is gathered
+    once and kept: a later :func:`gather_leaf` of the same block (the same
+    storage, offset, shape and version, over the same spec and dims) reads
+    the kept copy. For a run of sharded decode steps over parameters that
+    do not change (a serving session): each step otherwise gathers the
+    embedding and every layer's ``data`` shards again. The copies live
+    until the block ends. Every rank of the mesh opens the block around
+    the same calls (the ranks skip the same collectives)."""
+    global _kept
+    outer, _kept = _kept, {}
+    try:
+        yield
+    finally:
+        _kept = outer
+
+
+def _kept_key(x: torch.Tensor, sharding, dims) -> tuple:
+    return (x.device, x.untyped_storage().data_ptr(), x.storage_offset(),
+            tuple(x.shape), x.stride(), x.dtype, x._version,
+            id(sharding.mesh), tuple(sharding.spec), dims)
+
+
 def gather_leaf(x: torch.Tensor, sharding, pctx, axes=None) -> torch.Tensor:
     """``x`` (this rank's block of a leaf laid out by ``sharding``) gathered
     over ``axes`` (default: every axis its spec names); differentiable, see
     :class:`GatherLeaf`. A leaf with nothing to gather is returned as it
-    is."""
+    is; within :func:`keep_gathered`, with no gradient taken, a block
+    gathered before is read back."""
     from repro_torch.parallel.sharding import spec_axes
     entries = sharding._entries(x.dim())
     dims = tuple(d for d, e in enumerate(entries) if spec_axes(e)
                  and (axes is None or set(spec_axes(e)) <= set(axes)))
     if not dims:
         return x
-    return GatherLeaf.apply(x, sharding, dims, tuple(pctx.dp_axes))
+    if _kept is None or torch.is_grad_enabled():
+        return GatherLeaf.apply(x, sharding, dims, tuple(pctx.dp_axes))
+    key = _kept_key(x, sharding, dims)
+    if key not in _kept:
+        # the block is held with its copy, so its storage is not reused
+        _kept[key] = (x, gather_dims(x, sharding, dims))
+    return _kept[key][1]

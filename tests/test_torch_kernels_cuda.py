@@ -310,6 +310,56 @@ def test_ssd_scan_matches_plain_on_card(shape, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 64])
+def test_ssd_scan_on_a_head_block_equals_that_block_on_card(n, cuda_device):
+    """A rank's share of a sharded Mamba-2 layer: ssd_scan on 40 of 80
+    heads of 64 with all of d_state (mamba2-2.7b's 128, zamba2-2.7b's 64)
+    equals, bit for bit, that block of the 80-head call (the heads share
+    B and C and nothing else)."""
+    b, l, h, p, chunk = 2, 512, 80, 64, 256
+    x, dt, A, B, C = _ssd_case(b, l, h, p, n, torch.bfloat16, cuda_device,
+                               29)
+    y, st = ssd_kernel.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    for blk in (slice(0, h // 2), slice(h // 2, h)):
+        yb, sb = ssd_kernel.ssd_scan(x[:, :, blk].contiguous(),
+                                     dt[:, :, blk].contiguous(),
+                                     A[blk].contiguous(), B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(yb, y[:, :, blk])
+        assert torch.equal(sb, st[:, blk])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 32, 80, 80, 512),
+                                   (2, 12, 12, 64, 64, 1500),
+                                   (2, 14, 2, 64, 64, 512)])
+def test_flash_decode_on_a_head_block_matches_that_block_on_card(
+        shape, cuda_device):
+    """A rank's share of a sharded decode (zamba2's shared block, whisper's
+    cross read over 1,500 rows, internvl's 7 query heads over 1 KV head):
+    flash_decode on half the query heads and their KV heads against that
+    block of the whole-head call, within FD_TOL (the kernel splits the
+    rows of fewer units over more CTAs, so its merges run in another
+    order)."""
+    B, H, K, dk, dv, S = shape
+    rng = np.random.default_rng(31)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for s in ((B, H, dk), (B, S, K, dk), (B, S, K, dv)))
+    lengths = torch.tensor([S, S // 3], dtype=torch.int32,
+                           device=cuda_device)
+    whole = fd_kernel.flash_decode(q, k, v, lengths)
+    for m in range(2):
+        qh, kh = slice(m * H // 2, (m + 1) * H // 2), \
+            slice(m * K // 2, (m + 1) * K // 2)
+        got = fd_kernel.flash_decode(q[:, qh].contiguous(),
+                                     k[:, :, kh].contiguous(),
+                                     v[:, :, kh].contiguous(), lengths)
+        torch.cuda.synchronize()
+        _fd_close(got, whole[:, qh])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt_scale", [None, 5.0, 1e-4])
 @pytest.mark.parametrize("shape", SSD_EDGE_SHAPES)
 def test_ssd_scan_tensor_core_edges_on_card(shape, dt_scale, cuda_device):

@@ -290,40 +290,9 @@ def test_addr_of_names_the_references_replicas():
 
 def test_unported_sharded_paths_raise_naming_item_6b():
     """What sharding leaves to ROADMAP.md queue 1 item 6b refuses with
-    NotImplementedError: sequence parallelism, Mamba-2, hybrid,
-    encoder-decoder and VLM models on a sharded mesh, MLA's absorbed
-    decode with a model axis."""
-    from repro_torch.config import reduced
-    from repro_torch.models.attention import mla_decode
+    NotImplementedError: sequence parallelism (every model family runs on
+    a sharded mesh, tests/test_torch_sharded_families.py)."""
     from repro_torch.parallel.ctx import ParallelCtx
     mesh = TorchAbstractMesh(*MESHES["2x2x2"])
     with pytest.raises(NotImplementedError, match="item 6b"):
         ParallelCtx(mesh=mesh, seq_shard=True)
-    ctx = make_parallel_ctx(mesh)
-    toks = torch.zeros((2, 8), dtype=torch.int64)
-    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
-        model = build_model(reduced(get(arch)))
-        params = model.init(torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            model.loss_fn(params, {"tokens": toks, "labels": toks}, ctx)
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            model.prefill(params, {"tokens": toks}, ctx)
-    for arch in ("whisper-small", "internvl2-1b"):
-        cfg = reduced(get(arch))
-        model = build_model(cfg)
-        params = model.init(torch.Generator().manual_seed(0), device="cpu")
-        extra = ({"frames": torch.zeros((2, cfg.encdec.encoder_seq,
-                                         cfg.d_model))} if cfg.encdec
-                 else {"patches": torch.zeros((2, cfg.vision.n_patches,
-                                               cfg.d_model))})
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            model.loss_fn(params, {"tokens": toks, "labels": toks, **extra},
-                          ctx)
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            model.prefill(params, {"tokens": toks, **extra}, ctx)
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            model.decode_step(params, model.init_cache(2, 8, device="cpu"),
-                              {"token": toks[:, 0], "pos": 0}, ctx)
-    cfg = reduced(get("deepseek-v3-671b"))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        mla_decode({}, torch.zeros((1, 1, cfg.d_model)), cfg, {}, 0, ctx)
