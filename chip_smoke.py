@@ -278,7 +278,7 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             on a (pod 2, data 2, model 2) mesh over gloo, all on cuda:0
             (SHARD). (a) full-width exanest-lm-100m (bf16, random weights
             from torch.Generator seed 0, drawn whole on every rank, each
-            keeping its param_specs blocks): 2 sharded Trainer steps of a
+            keeping its param_specs blocks): 1 sharded Trainer step of a
             global batch 8 x 512 (2 rows a batch rank), TP over model (6 of
             12 heads, 2 of 4 KV heads, 1024 of 2048 MLP columns), ZeRO-3
             over data (each layer's data shards gathered at its entry), the
@@ -302,9 +302,18 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             cache at FD_TOL. (d) the trained state saved from (data 2,
             model 4) blocks (gathered, rank 0 writes) and restored onto
             (data 4, model 2) by elastic_reshard: every leaf equal bit for
-            bit. (c) granite-moe-1b-a400m at full width cut to 2 layers,
-            layer 0's MoE layer on its normed input (global batch 8 x 512):
-            16 of 32 experts a rank (EP over data), 256 of 512 expert
+            bit. (a) also: each rank's collective bytes a step by kind
+            (core.collectives.counting on the real transport) equal the dry
+            run's reckoning of that rank on meta exactly, and its step's
+            peak within DRYRUN_BAND of the dry run's; then a second step
+            twice from the same state and batch, with seq_shard (the
+            residual stream cut over model between blocks) and without:
+            the loss, every synced gradient and updated leaf bit for bit,
+            combine launches as reckoned for both, the seq_shard peak not
+            above the other's. (c) granite-moe-1b-a400m at full width cut
+            to 2 layers, layer 0's MoE layer on its normed input (global
+            batch 8 x 512): 16 of 32 experts a rank (EP over data), 256 of
+            512 expert
             columns (TP over model), one forward and backward; the routes
             equal emulate_ep's (EP with a model axis of 1) on the gathered
             tokens, the output, input gradient and parameter gradients
@@ -418,6 +427,21 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             torch lane under torch.profiler (the device's busy share);
             gates: the lanes within 1e-9 relative in every latency and
             clock, and the torch lane ran scans.
+38. dryrun  the dry run (repro_torch.launch.dryrun: the step traced on
+            meta tensors as one mesh rank) held against the card's own
+            steps: the train phase's step (exanest-lm-100m, 8 x 512, one
+            rank, Trainer's functional step) run once more on the card:
+            the dry run's FLOPs equal FlopCounterMode's over that step
+            exactly, its peak within DRYRUN_BAND of the step's
+            torch.cuda.max_memory_allocated (less what the card held
+            beside the step's arguments); ds_train's donated step (phase
+            23's peak over its run, and ds_train_peak_gb's meta-tree
+            reckoning) against the dry run's peak in the same band; phase
+            28 (a)'s gates, reported here: each rank's collective bytes a
+            step by kind equal the dry run's reckoning of that rank
+            exactly, its peak in the band, the seq_shard step bit for bit;
+            then full-width cells on the production meshes, one a family
+            (DRYRUN_CELLS), one line each with trace_s.
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -655,13 +679,13 @@ LINES: list[dict] = []
 
 #: phase 28 (shard): eight gloo ranks on this one card as a (pod 2, data 2,
 #: model 2) mesh, the reference's test_distributed.py mesh. (a) full-width
-#: exanest-lm-100m, global batch 8 x 512, 2 sharded steps at lr 1e-3 from
+#: exanest-lm-100m, global batch 8 x 512, 1 sharded step at lr 1e-3 from
 #: step 1 (warmup 1); (b) prefill of 512 tokens then 16 decode steps at
 #: batch 8; (c) granite's MoE layer 0 at full width, model cut to 2 layers,
 #: on layer 0's normed input of a global batch 8 x 512; (d) the state after
 #: (a) saved on (data 2, model 4), restored onto (data 4, model 2)
 SHARD = dict(world=8, mesh=(2, 2, 2), arch="exanest-lm-100m",
-             global_batch=8, seq=512, steps=2, lr=1e-3, prompt=512,
+             global_batch=8, seq=512, steps=1, lr=1e-3, prompt=512,
              decode=16, moe_arch="granite-moe-1b-a400m", moe_layers=2,
              reshard=((2, 4), (4, 2)))
 #: (a) the reference's own tolerance for a sharded step against the
@@ -737,6 +761,24 @@ SHARD_FAMILY_DECODE = 16
 #: (e)'s ranks draw their full trees at once while they fit in this many GB
 #: of the card together, else in waves
 SHARD_DRAW_GB = 16.0
+#: phase 38's full-width cells on the production meshes, one a family:
+#: (label, arch, shape, multi_pod); decode cells (a few seconds each on
+#: the host: no flash-attention block loop) and Mamba-2's long_500k
+DRYRUN_CELLS = (
+    ("dense", "deepseek-7b", "decode_32k", False),
+    ("moe", "granite-moe-1b-a400m", "decode_32k", False),
+    ("mla", "deepseek-v3-671b", "decode_32k", True),
+    ("ssm", "mamba2-2.7b", "long_500k", False),
+    ("hybrid", "zamba2-2.7b", "decode_32k", False),
+    ("encdec", "whisper-small", "decode_32k", False),
+    ("vlm", "internvl2-1b", "decode_32k", True),
+)
+#: the dry run's peak against a step's measured one: within 10% of the
+#: measured peak or 256 MiB, whichever is larger (the caching allocator's
+#: rounding, cuBLAS workspaces and the CUDA context's own allocations are
+#: not the step's tensors). A reading outside the band is a fault of the
+#: reckoning, to be repaired there
+DRYRUN_BAND = (0.10, 256 * 2 ** 20)
 
 #: phases 29-32, the encoder-decoder and VLM families at full width (bf16,
 #: weights drawn on the card from torch.Generator("cuda") seed 0). Training
@@ -3008,7 +3050,8 @@ def moe_phases(smi: str, acts) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     train_fd = fd.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
     held_after = held_loss(state["params"])
     drop = float(np.mean(held_before) - np.mean(held_after))
     steady_ms = float(np.mean(walls[1:])) * 1e3
@@ -3450,6 +3493,8 @@ def ds_phases(smi: str, acts) -> dict:
         raise AssertionError(f"ds_train: reckoned peak {reckoned} GB")
     tr = Trainer(tmodel, opt_cfg, device=dev, donate=True)
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     state = tr.init_state(gen())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -3510,7 +3555,8 @@ def ds_phases(smi: str, acts) -> dict:
         LM._mtp_loss = mtp_orig
         moe.drop_log = None
     train_fd = fd.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
     held_after = held_loss(state["params"])
     drop = float(np.mean(held_before) - np.mean(held_after))
     steady_ms = float(np.mean(walls[1:])) * 1e3
@@ -3774,8 +3820,13 @@ def ds_phases(smi: str, acts) -> dict:
     if any(launches.values()):
         raise AssertionError(f"a kernel launched on the deepseek path: "
                              f"{launches}")
-    return {name: {"path": "ds_train, ds_decode, ds_serve", "launches": n}
-            for name, n in launches.items()}
+    out = {name: {"path": "ds_train, ds_decode, ds_serve", "launches": n}
+           for name, n in launches.items()}
+    # the donated step's peak over the run, less what the card held before
+    # the state was drawn; and the meta-tree reckoning of it
+    out["train_peak"] = {"bytes": peak_bytes - base,
+                         "reckoned_GB": reckoned["donated"]}
+    return out
 
 
 # ------------------------------------------------------------- 28. shard
@@ -3834,6 +3885,40 @@ def _block_combines(cfg, pctx, kind: str, over_data) -> dict:
     return {"forward": attn + cross + mlp, "recompute": attn + cross,
             "backward": attn * (1 + kv) + cross * (2 + kv) + mlp,
             "zero": zero}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch import tree as tree_util
+    return sum(t.numel() * t.element_size() for t in tree_util.leaves(tree)
+               if isinstance(t, torch.Tensor) and t.is_cuda)
+
+
+def step_peak_start(on_card: bool, args) -> int | None:
+    """Before a step: the peak reset, and the bytes the card holds besides
+    the step's arguments ``args`` (what :func:`step_peak` subtracts), so a
+    step's peak counts what the dry run counts: its arguments and what it
+    allocates. None off the card."""
+    if not on_card:
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() - _tree_bytes(args)
+
+
+def step_peak(on_card: bool, other: int | None) -> int | None:
+    """After a step: ``torch.cuda.max_memory_allocated()`` less what
+    :func:`step_peak_start` found besides the step's arguments."""
+    if not on_card:
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - other
+
+
+def within_band(reckoned: int, measured: int) -> bool:
+    """DRYRUN_BAND: the dry run's peak within 10% of the measured one or
+    256 MiB, whichever is larger."""
+    return abs(reckoned - measured) <= max(DRYRUN_BAND[0] * measured,
+                                           DRYRUN_BAND[1])
 
 
 def shard_block_calls(model) -> list[tuple[str, int]]:
@@ -4365,6 +4450,7 @@ def shard_worker(rank: int, port: int, out_dir: str,
     from repro_torch import tree as tree_util
     from repro_torch.checkpoint.store import save_checkpoint
     from repro_torch.configs import get
+    from repro_torch.core import collectives
     from repro_torch.data.pipeline import SyntheticTokens, shard_batch
     from repro_torch.kernels.allreduce_combine import kernel as ck
     from repro_torch.kernels.flash_decode import kernel as fd
@@ -4479,16 +4565,21 @@ def shard_worker(rank: int, port: int, out_dir: str,
         rec["steps"] = []
         for i in range(SHARD["steps"]):
             batch = data.batch_at(i)
+            local_b = shard_batch(batch, pctx)
             sync()
             dist.barrier()
             ck.launches = 0
+            other = step_peak_start(on_card, (state, local_b))
             t0 = time.perf_counter()
-            state, m = step(state, shard_batch(batch, pctx))
+            with collectives.counting() as wire:
+                state, m = step(state, local_b)
             sync()
             wall = time.perf_counter() - t0
             launches = ck.launches
             rec["steps"].append({"loss": float(m["loss"]), "wall_s": wall,
-                                 "combine_launches": launches})
+                                 "combine_launches": launches,
+                                 "wire_bytes": dict(wire["bytes"]),
+                                 "peak_bytes": step_peak(on_card, other)})
             if i == 0:
                 p1 = gather_tree(state["params"], specs, mesh)
                 g1 = gather_tree(seen["g"], specs, mesh)
@@ -4557,6 +4648,74 @@ def shard_worker(rank: int, port: int, out_dir: str,
             rec["steps"][-1]["replicated_equal_everywhere"] = len(
                 {r for *_, r in both_d}) == 1
         lap("train")
+
+        # ---- (a) seq_shard: one step with the residual stream cut over
+        # model between blocks, beside the same step without it, from the
+        # same state and batch
+        local_b = shard_batch(data.batch_at(SHARD["steps"]), pctx)
+        seq_runs = {}
+        for on in (False, True):
+            tr_s = Trainer(model, opt_cfg, device=dev,
+                           pctx=dataclasses.replace(pctx, seq_shard=on))
+            got_s, sync_s = {}, tr_s.make_sync()
+
+            def cap_s(g, sync_s=sync_s, got_s=got_s):
+                got_s["g"] = sync_s(g)
+                return got_s["g"]
+
+            step_s = tr_s.make_step(sync_fn=cap_s)
+            sync()
+            dist.barrier()
+            ck.launches = 0
+            other = step_peak_start(on_card, (state, local_b))
+            with collectives.counting() as wire:
+                new_s, m_s = step_s(state, local_b)
+            sync()
+            seq_runs[on] = {"loss": m_s["loss"], "grads": got_s["g"],
+                            "params": new_s["params"],
+                            "combine_launches": ck.launches,
+                            "peak_bytes": step_peak(on_card, other),
+                            "wire": wire}
+            del new_s
+        off_s, on_s = seq_runs[False], seq_runs[True]
+
+        def bitwise(a, b):
+            return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in
+                       zip(tree_util.leaves(a), tree_util.leaves(b),
+                           strict=True))
+
+        rec["seq_shard"] = {
+            "loss": [float(off_s["loss"]), float(on_s["loss"])],
+            "loss_equal": torch.equal(off_s["loss"], on_s["loss"]),
+            "grads_equal": bitwise(off_s["grads"], on_s["grads"]),
+            "params_equal": bitwise(off_s["params"], on_s["params"]),
+            "combine_launches": [off_s["combine_launches"],
+                                 on_s["combine_launches"]],
+            "peak_bytes": [off_s["peak_bytes"], on_s["peak_bytes"]],
+            "wire_bytes": [dict(off_s["wire"]["bytes"]),
+                           dict(on_s["wire"]["bytes"])],
+            "seq_gather_bytes": on_s["wire"]["by_op"].get("seq_gather", 0)}
+        del seq_runs, off_s, on_s
+        # this rank's reckoning by the dry run, on meta: the same steps
+        # (Trainer's functional step, the same mesh rank), off and on
+        from repro_torch.config import ShapeConfig
+        from repro_torch.launch import dryrun
+        shp = ShapeConfig("shard_a", SHARD["seq"], SHARD["global_batch"],
+                          "train")
+        rec["dryrun"] = {}
+        for on in (False, True):
+            cell, meta = dryrun.lower_cell(
+                cfg, shp, False, {"seq_shard": on}, mesh_shape=SHARD["mesh"],
+                rank=rank, donate=False)
+            r_ = dryrun.analyze(cell, meta)
+            rec["dryrun"]["on" if on else "off"] = {
+                "wire_bytes": {k: r_["collective_bytes"][k]
+                               for k in collectives.KINDS},
+                "by_op": r_["collective_bytes"]["by_op"],
+                "peak_bytes": r_["memory"]["peak_bytes"],
+                "combine_calls": r_["kernels"]["combine"]["calls"],
+                "trace_s": r_["trace_s"]}
+        lap("seq_shard_and_dryrun")
 
         # ---- (b) sharded prefill, then decode
         pr, nd = SHARD["prompt"], SHARD["decode"]
@@ -4846,6 +5005,8 @@ def shard_phase(smi: str) -> dict:
           "decode": {r["rank"]: r["decode"] for r in ranks},
           "moe": {r["rank"]: r["moe"] for r in ranks},
           "reshard": {r["rank"]: r["reshard"] for r in ranks},
+          "seq_shard": {r["rank"]: r["seq_shard"] for r in ranks},
+          "dryrun": {r["rank"]: r["dryrun"] for r in ranks},
           "sections_s_rank0": r0["sections_s"], "wall_s": wall,
           "tolerances": {"step": SHARD_STEP_TOL, "bf16": SHARD_BF16_TOL,
                          "grad": SHARD_GRAD_TOL, "update": SHARD_UPDATE_TOL,
@@ -4882,6 +5043,7 @@ def shard_phase(smi: str) -> dict:
                     and s["replicated_equal_everywhere"]
                     and math.isfinite(s["loss"])):
                 bad.append(f"(a) rank {r['rank']} step {i}: {s}")
+        bad += shard_dryrun_gates(r, want)
         d = r["decode"]
         if (d["local_cache"][3] != 2 or d["launches_per_decode_step"]
                 != get(SHARD["arch"]).n_layers
@@ -4939,11 +5101,17 @@ def shard_phase(smi: str) -> dict:
     fam_ssd = sum((f.get("train") or {}).get("ssd_scan_launches", 0)
                   + f["decode"]["prefill_ssd_scan_launches"] for f in f0)
     by_fam = {label: f for (label, *_), f in zip(SHARD_FAMILIES, f0)}
-    return {"combine": {
+    return {"dryrun": {"steps": {r["rank"]: [s["peak_bytes"] for s in
+                                             r["steps"]] for r in ranks},
+                       "wire_bytes": r0["steps"][0]["wire_bytes"],
+                       "seq_shard": {r["rank"]: r["seq_shard"]
+                                     for r in ranks},
+                       "reckoned": {r["rank"]: r["dryrun"] for r in ranks}},
+            "combine": {
                 "path": "shard (rank 0): TP sums, ZeRO reduce-scatters, "
                         "sync, norm, loss; every family's step and decode",
                 "launches": sum(s["combine_launches"] for s in r0["steps"])
-                + fam_combine,
+                + sum(r0["seq_shard"]["combine_launches"]) + fam_combine,
                 "launches_per_step": want, "steps": steps,
                 "moe_layer_fwd_bwd": m0["combine_launches"],
                 "families": {k: {"train_step": (f.get("train") or {}).get(
@@ -4973,6 +5141,45 @@ def shard_phase(smi: str) -> dict:
                     "prefill_ssd_scan_launches"], "check": f[
                     "kernel_checks"].get("ssd_scan")}
                     for k, f in by_fam.items() if f["ssm_layers"]}}}
+
+
+def shard_dryrun_gates(r: dict, want: int) -> list[str]:
+    """Phase 28 (a)'s seq_shard step and dry-run gates on one rank's
+    record: the seq_shard step's loss, synced gradients and updated
+    parameters bit for bit the step without it, both with ``want``
+    combine launches and the seq_shard peak not above the other; every
+    counted step's collective bytes by kind equal to the dry run's
+    reckoning of this rank exactly, its peak within DRYRUN_BAND."""
+    bad, who = [], f"(a) rank {r['rank']}"
+    q, dry = r["seq_shard"], r["dryrun"]
+    if not (q["loss_equal"] and q["grads_equal"] and q["params_equal"]):
+        bad.append(f"{who} seq_shard step not bit for bit: {q}")
+    if q["combine_launches"] != [want, want] or \
+            dry["on"]["combine_calls"] != want or \
+            dry["off"]["combine_calls"] != want:
+        bad.append(f"{who} seq_shard combine launches "
+                   f"{q['combine_launches']} (dry run {dry}), reckoned "
+                   f"{want}")
+    if q["seq_gather_bytes"] <= 0:
+        bad.append(f"{who} seq_shard gathered no stream")
+    peaks = [(f"step {i}", s["wire_bytes"], s["peak_bytes"], "off")
+             for i, s in enumerate(r["steps"])]
+    peaks += [("seq_shard off", q["wire_bytes"][0], q["peak_bytes"][0],
+               "off"),
+              ("seq_shard on", q["wire_bytes"][1], q["peak_bytes"][1],
+               "on")]
+    for name, wire, peak, key in peaks:
+        if wire != dry[key]["wire_bytes"]:
+            bad.append(f"{who} {name}: collective bytes {wire}, the dry "
+                       f"run's {dry[key]['wire_bytes']}")
+        if peak is not None and not within_band(dry[key]["peak_bytes"],
+                                                peak):
+            bad.append(f"{who} {name}: peak {peak} B, the dry run's "
+                       f"{dry[key]['peak_bytes']} B")
+    if q["peak_bytes"][0] is not None and \
+            q["peak_bytes"][1] > q["peak_bytes"][0]:
+        bad.append(f"{who} seq_shard peak {q['peak_bytes']}")
+    return bad
 
 
 def shard_family_gates(label: str, fams: list, ranks: list) -> list[str]:
@@ -5070,7 +5277,8 @@ def family_train_phase(phase: str, train: dict, model, state, step_fn, data,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     train_fd = fd.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
     held_after = held_loss(state["params"])
     drop = float(np.mean(held_before) - np.mean(held_after))
     steady_s = float(np.mean(walls[1:]))
@@ -6542,6 +6750,11 @@ def main() -> int:
     # ------------------------- 35-37. the studies and the simulators
     sim_studies_phases(smi, acts, serve_reading)
 
+    # ----------------------------------------------------------- 38. dryrun
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(smi, ds["train_peak"], shard["dryrun"])
+
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -6586,6 +6799,105 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": 1}}), flush=True)
     return 0
+
+
+def dryrun_phase(smi: str, ds_peak: dict, shard_dry: dict) -> dict:
+    """Phase 38 (see the module docstring): emits the dryrun line and one
+    dryrun_cell line a DRYRUN_CELLS entry; raises on a failed gate."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import adamw_init
+    t0 = time.perf_counter()
+    bad = []
+    # the train phase's step: reckoned on meta, then run on the card
+    cfg = get("exanest-lm-100m")
+    shp = ShapeConfig("train", TRAIN["seq"], TRAIN["batch"], "train")
+    cell, meta = dryrun.lower_cell(cfg, shp, False, mesh_shape=(),
+                                   donate=False)
+    dry = dryrun.analyze(cell, meta)
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    opt = adamw_init(params, dryrun._opt_config(cfg))
+    batch = SyntheticTokens(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                            device="cuda").batch_at(0)
+    fn = cell.make_fn()
+    fn(params, opt, batch)          # first call: workspaces, kernels built
+    other = step_peak_start(True, (params, opt, batch))
+    fn(params, opt, batch)
+    peak = step_peak(True, other)
+    with FlopCounterMode(display=False) as fc:
+        fn(params, opt, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    del params, opt, batch, model
+    torch.cuda.empty_cache()
+    train = {"cell": "exanest-lm-100m 8 x 512, one rank, functional step",
+             "flops": dry["flops"], "card_flops": card_flops,
+             "peak_bytes": dry["memory"]["peak_bytes"],
+             "card_peak_bytes": peak, "trace_s": dry["trace_s"]}
+    if card_flops != dry["flops"]:
+        bad.append(f"train: FLOPs {dry['flops']} against the card's "
+                   f"{card_flops}")
+    if not within_band(dry["memory"]["peak_bytes"], peak):
+        bad.append(f"train: peak {dry['memory']['peak_bytes']} B against "
+                   f"the card's {peak} B")
+    # ds_train's donated step
+    _, tcfg = ds_configs()
+    cell, meta = dryrun.lower_cell(
+        tcfg, ShapeConfig("ds_train", DS_TRAIN["seq"], DS_TRAIN["batch"],
+                          "train"), False, mesh_shape=())
+    ds = dryrun.analyze(cell, meta)
+    ds_line = {"cell": "deepseek-v3-671b cut (ds_configs), 2 x 2048, one "
+                       "rank, donated step",
+               "peak_bytes": ds["memory"]["peak_bytes"],
+               "card_peak_bytes": ds_peak["bytes"],
+               "meta_tree_reckoned_bytes": round(ds_peak["reckoned_GB"]
+                                                 * 1e9),
+               "flops": ds["flops"], "trace_s": ds["trace_s"]}
+    for key in ("card_peak_bytes", "meta_tree_reckoned_bytes"):
+        if not within_band(ds["memory"]["peak_bytes"], ds_line[key]):
+            bad.append(f"ds_train: peak {ds['memory']['peak_bytes']} B "
+                       f"against {key} {ds_line[key]} B")
+    r0 = shard_dry["reckoned"][0]
+    shard_line = {"cell": "exanest-lm-100m 8 x 512 on (2, 2, 2), each rank",
+                  "wire_bytes_step0_rank0": shard_dry["wire_bytes"],
+                  "dry_wire_bytes_rank0": r0["off"]["wire_bytes"],
+                  "peak_bytes": {r: [d["off"]["peak_bytes"],
+                                     d["on"]["peak_bytes"]]
+                                 for r, d in shard_dry["reckoned"].items()},
+                  "card_peak_bytes_steps": shard_dry["steps"],
+                  "seq_shard": {r: {k: q[k] for k in (
+                      "loss_equal", "grads_equal", "params_equal",
+                      "combine_launches", "peak_bytes", "seq_gather_bytes")}
+                      for r, q in shard_dry["seq_shard"].items()},
+                  "trace_s_rank0": [r0["off"]["trace_s"],
+                                    r0["on"]["trace_s"]]}
+    cells = {}
+    for label, arch, shape, multi in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, multi)
+        line = {"phase": "dryrun_cell", "family": label,
+                **{k: r[k] for k in ("arch", "shape", "mesh", "trace_s",
+                                     "memory", "fits_h100", "flops",
+                                     "bytes_accessed", "collective_bytes",
+                                     "kernels", "roofline")}}
+        emit(line)
+        cells[label] = {k: r[k] for k in ("trace_s", "fits_h100")}
+    host_s = time.perf_counter() - t0
+    emit({"phase": "dryrun", "band": {"relative": DRYRUN_BAND[0],
+                                      "bytes": DRYRUN_BAND[1]},
+          "train": train, "ds_train": ds_line, "shard_a": shard_line,
+          "cells": cells, "host_s": host_s,
+          "reckoned_against": "roofline/hw.py H100 (data sheet, 700 W)",
+          "card": smi})
+    if bad:
+        raise AssertionError("dryrun: " + "; ".join(bad))
+    return {"host_s": host_s}
 
 
 def fd_timing_from(src: Path) -> int:

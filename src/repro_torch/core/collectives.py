@@ -26,9 +26,25 @@ the communication backend, as the reference's one ``psum``.
 
 With the gloo backend, CUDA tensors cross the wire through host memory
 (gloo has no all-to-all for them); the reductions stay on the card.
+
+Every collective of the port reaches the wire in one of three calls here:
+``all_gather`` (:func:`all_gather_stack`), ``all_to_all_single``
+(:func:`all_to_all`) and ``all_reduce`` (:func:`flat_allreduce`). Within
+:func:`counting` each call adds its output's bytes on this rank (the
+reference dry run's measure: what a chip injects into the fabric for the
+op) to a count by kind, by the logical op that :func:`tagged` names
+around it, and, where its group spans the ``pod`` axis, to the bytes that
+cross pods. On a :class:`DryGroup` (the groups of
+:class:`repro_torch.launch.mesh.DryMesh`, the dry run's stand-in for a
+mesh it does not have) the same calls return tensors of the right shape
+and dtype on the input's device, ``meta`` in the dry run, touch no
+process group and count the same bytes.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import torch
 import torch.distributed as dist
@@ -36,12 +52,100 @@ import torch.distributed as dist
 from repro_torch.kernels.allreduce_combine.ops import combine_parts
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class DryGroup:
+    """A process group that does not exist: ``size`` ranks over ``axes``
+    of a mesh without processes. The collectives here give a call on it
+    the result's shape, dtype and device, and move nothing."""
+    axes: tuple[str, ...]
+    size: int
+
+
+#: the axes of each process group a ProcessMesh made (for the pod count)
+_GROUP_AXES: dict = {}
+
+
+def register_group(group, axes: tuple[str, ...]) -> None:
+    """Record which mesh axes ``group`` spans (``ProcessMesh`` calls it)."""
+    _GROUP_AXES[group] = tuple(axes)
+
+
+def group_size(group) -> int:
+    """Ranks in ``group``: a real process group or a :class:`DryGroup`."""
+    if isinstance(group, DryGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+#: the open count of :func:`counting`, and the stack of :func:`tagged` names
+_count: dict | None = None
+_tags: list[str] = []
+KINDS = ("all_gather", "all_to_all", "all_reduce")
+
+
+def new_count() -> dict:
+    return {"bytes": dict.fromkeys(KINDS, 0), "ops": dict.fromkeys(KINDS, 0),
+            "by_op": {}, "cross_pod_bytes": 0}
+
+
+@contextlib.contextmanager
+def counting():
+    """Count every collective's output bytes on this rank while the block
+    runs: yields ``{"bytes": {kind: n}, "ops": {kind: calls}, "by_op":
+    {logical op: n}, "cross_pod_bytes": n}``. Counts nest: an inner block's
+    bytes count in the outer one too."""
+    global _count
+    outer, mine = _count, new_count()
+    _count = mine
+    try:
+        yield mine
+    finally:
+        _count = outer
+        if outer is not None:
+            _merge(outer, mine)
+
+
+def _merge(into: dict, part: dict) -> None:
+    for k in KINDS:
+        into["bytes"][k] += part["bytes"][k]
+        into["ops"][k] += part["ops"][k]
+    for k, n in part["by_op"].items():
+        into["by_op"][k] = into["by_op"].get(k, 0) + n
+    into["cross_pod_bytes"] += part["cross_pod_bytes"]
+
+
+@contextlib.contextmanager
+def tagged(name: str):
+    """Name the logical op of the collectives the block runs (the innermost
+    name counts): ``"sum_over_model"``, ``"weight_gather"``, ...; untagged
+    calls count as ``"other"``."""
+    _tags.append(name)
+    try:
+        yield
+    finally:
+        _tags.pop()
+
+
+def _record(kind: str, nbytes: int, group) -> None:
+    if _count is None:
+        return
+    _count["bytes"][kind] += nbytes
+    _count["ops"][kind] += 1
+    op = _tags[-1] if _tags else "other"
+    _count["by_op"][op] = _count["by_op"].get(op, 0) + nbytes
+    axes = group.axes if isinstance(group, DryGroup) else _GROUP_AXES.get(
+        group, ())
+    if "pod" in axes:
+        _count["cross_pod_bytes"] += nbytes
+
+
 def host_staged(t: torch.Tensor, group) -> bool:
     """Whether ``t`` crosses ``group`` through host memory: gloo moves CUDA
     tensors for some collectives only (all_to_all not at all), so the port
     stages every gloo transfer of a CUDA tensor through the host. The
     reduction arithmetic stays on the tensor's own device."""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+    return (t.is_cuda and not isinstance(group, DryGroup)
+            and dist.get_backend(group) == "gloo")
 
 
 def _wire(t: torch.Tensor, group) -> torch.Tensor:
@@ -56,10 +160,14 @@ _AS_BYTES = (torch.int16, torch.bfloat16, torch.float16)
 def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
     """(size, *x.shape): every rank's ``x`` in group-rank order. 16-bit
     dtypes travel as their bytes (exact)."""
+    k = group_size(group)
+    _record("all_gather", k * x.numel() * x.element_size(), group)
+    if isinstance(group, DryGroup):
+        return x.new_empty((k,) + tuple(x.shape))
     w = _wire(x.contiguous(), group)
     if w.dtype in _AS_BYTES:
         w = w.reshape(-1).view(torch.uint8)
-    parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+    parts = [torch.empty_like(w) for _ in range(k)]
     dist.all_gather(parts, w, group=group)
     out = torch.stack(parts)
     if x.dtype in _AS_BYTES:
@@ -73,6 +181,9 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     goes to the group's i-th rank, and block i of the result came from it.
     Moved as bytes (exact for every dtype); gloo takes a CUDA tensor
     through host memory, staged here explicitly. Not differentiable."""
+    _record("all_to_all", x.numel() * x.element_size(), group)
+    if isinstance(group, DryGroup):
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     src = x.contiguous()
     wire = _wire(src, group).reshape(-1).view(torch.uint8)
     out = torch.empty_like(wire)
@@ -85,7 +196,7 @@ def reduce_scatter_combine(x: torch.Tensor, group) -> torch.Tensor:
     summed shard (n/k, ...): rows ``[i·n/k, (i+1)·n/k)`` for group rank i.
     An all-to-all delivers the shard's k parts as (k, n/k·...) and
     ``combine`` sums them in group-rank order."""
-    k = dist.get_world_size(group)
+    k = group_size(group)
     n = x.shape[0]
     recv = all_to_all(x.reshape(k, -1), group)
     shard = combine_parts(recv, op="sum")
@@ -109,7 +220,7 @@ def hierarchical_schedule(x: torch.Tensor, mesh, inter_stage, *,
     axis, padding dropped. Returns a new tensor; ``x`` is left as it is."""
     intra, inter = mesh.group(intra_axis), mesh.group(inter_axis)
     n = x.shape[0]
-    xp = _pad_rows(x, dist.get_world_size(intra))
+    xp = _pad_rows(x, group_size(intra))
     shard = reduce_scatter_combine(xp, intra)
     shard = inter_stage(shard, inter)
     return all_gather_stack(shard, intra).reshape(xp.shape)[:n]
@@ -135,6 +246,9 @@ def flat_allreduce(x: torch.Tensor, mesh, axes: tuple[str, ...]) -> torch.Tensor
     """Single-phase sum over all ``axes`` (the software-allreduce
     baseline). Returns a new tensor."""
     group = mesh.group(axes if len(axes) > 1 else axes[0])
+    _record("all_reduce", x.numel() * x.element_size(), group)
+    if isinstance(group, DryGroup):
+        return torch.empty_like(x)
     buf = _wire(x, group).clone()
     dist.all_reduce(buf, group=group)
     return buf.to(x.device)

@@ -3,26 +3,77 @@ version on the CPU.
 
 Counterpart of ``repro.kernels.flash_decode.ops``. The device of the tensors
 decides: a CPU tensor goes to :func:`ref.decode_attention_ref`, a CUDA
-tensor to the kernel, or the call raises. Nothing falls back from the
-kernel to the plain version.
+tensor to the kernel, a meta tensor to the kernel's custom op
+``repro_torch::flash_decode`` (for the dry run,
+:mod:`repro_torch.kernels._meta`), or the call raises. Nothing falls back
+from the kernel to the plain version.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels.flash_decode.kernel import flash_decode
+from repro_torch.kernels._meta import KERNEL_BYTES, meta_only
+from repro_torch.kernels.flash_decode.kernel import (_DTYPE_CODE, HEAD_DIMS,
+                                                     flash_decode)
 from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
+def flash_decode_meta(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    return meta_only("flash_decode")(q, k, v)
+
+
+@flash_decode_meta.register_fake
+def _(q, k, v):
+    B, H, dk = q.shape
+    _, S, K, dv = v.shape
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != dk \
+            or H % K:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if (dk, dv) not in HEAD_DIMS:
+        raise ValueError(f"(dk, dv)=({dk}, {dv}) not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}: "
+                         "need all float32 or all bfloat16")
+    return q.new_empty((B, H, dv))
+
+
+def decode_flops(lengths, heads: int, dk: int, dv: int) -> int:
+    """The kernel's products: each head's query against each live key
+    (``dk`` multiply-adds) and its probability times the value (``dv``),
+    2 per multiply-add. The softmax's exponentials are not counted."""
+    return 2 * sum(int(n) for n in lengths) * heads * (dk + dv)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    B, H, dk = q_shape
+    return decode_flops([k_shape[1]] * B, H, dk, v_shape[3])
+
+
+KERNEL_BYTES[torch.ops.repro_torch.flash_decode.default] = \
+    lambda q, k, v: hbm_bytes([k.shape[1]] * q.shape[0], q.shape[1],
+                              k.shape[2], q.shape[2], v.shape[3],
+                              q.element_size())
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 length=None) -> torch.Tensor:
     """q: (B,H,dk); caches (B,S,K,d*); attends to positions ``< length``
-    (``None``: all of S; an int; or a (B,) tensor with values in [1, S])."""
+    (``None``: all of S; an int; or a (B,) tensor with values in [1, S]).
+    On ``meta`` every row is reckoned at all of S: the dry run decodes the
+    token after a full cache, and a meta tensor holds no lengths."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, length)
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_decode(q, k, v)
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
+        raise ValueError(f"decode_attn runs on cpu, cuda or meta, not "
+                         f"{q.device}")
     B, S = k.shape[:2]
     if length is None:
         length = S

@@ -3,17 +3,47 @@ CPU.
 
 Counterpart of ``repro.kernels.ssd_scan.ops``. The device of the tensors
 decides: a CPU tensor goes to :func:`ref.ssd_ref`, a CUDA tensor to the
-kernel, or the call raises. Nothing falls back from the kernel to the plain
-version.
+kernel, a meta tensor to the kernel's custom op ``repro_torch::ssd_scan``
+(for the dry run, :mod:`repro_torch.kernels._meta`), or the call raises.
+Nothing falls back from the kernel to the plain version.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+from repro_torch.kernels._meta import KERNEL_BYTES, meta_only
+from repro_torch.kernels.ssd_scan.kernel import _check, ssd_scan, variant_for
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.roofline.hw import H100, H100_PEAK_F32_FLOPS
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_meta(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, chunk: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    return meta_only("ssd_scan")(x, dt, A, B, C, chunk)
+
+
+@ssd_scan_meta.register_fake
+def _(x, dt, A, B, C, chunk):
+    b, l, h, p, n = _check(x, dt, A, B, C, chunk)
+    variant_for(x.dtype, p, n, chunk)
+    return (x.new_empty((b, l, h, p), dtype=torch.float32),
+            x.new_empty((b, h, p, n), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk, *args,
+      out_shape=None, **kwargs) -> int:
+    b, l, h, p = x_shape
+    return ssd_cost(b, l, h, p, B_shape[3], chunk, 2)[1]
+
+
+KERNEL_BYTES[torch.ops.repro_torch.ssd_scan.default] = \
+    lambda x, dt, A, B, C, chunk: ssd_cost(*x.shape, B.shape[3], chunk,
+                                           x.element_size())[0]
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 256):
@@ -21,8 +51,10 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256):
     Returns (y (b,l,h,p) f32, final_state (b,h,p,n) f32)."""
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, B, C)
+    if x.device.type == "meta":
+        return torch.ops.repro_torch.ssd_scan(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
-        raise ValueError(f"ssd runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"ssd runs on cpu, cuda or meta, not {x.device}")
     return ssd_scan(x, dt, A, B, C, chunk=chunk)
 
 

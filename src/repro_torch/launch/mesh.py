@@ -12,7 +12,12 @@ mesh. ``"pod"`` is the slow, inter axis of the hierarchical collectives,
 ``"data"`` the fast, intra one and ``"model"`` the tensor/expert-parallel
 one. :class:`AbstractMesh` is the same layout without processes (the
 counterpart of ``jax.sharding.AbstractMesh``): the sharding rules and the
-GVAS map need only axis names and sizes.
+GVAS map need only axis names and sizes. :class:`DryMesh` is one rank of a
+mesh whose other ranks do not exist: its groups are
+:class:`~repro_torch.core.collectives.DryGroup` stand-ins, on which the
+collectives give results of the right shape and move nothing (the dry run,
+:mod:`repro_torch.launch.dryrun`, plays rank 0 of the production mesh on
+``meta`` tensors with it).
 
 Nothing here picks an address or starts processes: callers run
 ``torch.distributed.init_process_group`` (``tcp://localhost:<port>``, world
@@ -24,8 +29,10 @@ from __future__ import annotations
 import itertools
 import math
 
+import torch
 import torch.distributed as dist
 
+from repro_torch.core.collectives import DryGroup, register_group
 from repro_torch.device import resolve_device
 
 
@@ -79,6 +86,7 @@ class ProcessMesh(AbstractMesh):
                 key = tuple(sorted(span))
                 if n == len(axes):
                     self._groups[key] = dist.new_group(list(range(world)))
+                    register_group(self._groups[key], key)
                     continue
                 fixed_axes = [a for a in self.axis_names if a not in span]
                 for fixed in itertools.product(
@@ -90,6 +98,7 @@ class ProcessMesh(AbstractMesh):
                     g = dist.new_group(ranks)
                     if self.rank in ranks:
                         self._groups[key] = g
+                        register_group(g, key)
 
     def group(self, axes) -> object:
         """The process group spanning ``axes`` (an axis name, or a tuple of
@@ -105,6 +114,41 @@ class ProcessMesh(AbstractMesh):
         return f"ProcessMesh({self.shape}, rank={self.rank}, {self.device})"
 
 
+class DryMesh(AbstractMesh):
+    """Rank ``rank`` of a mesh without processes: ``coords``, ``device``
+    (``meta``) and ``group(axes)`` as a :class:`ProcessMesh` has them, each
+    group a :class:`~repro_torch.core.collectives.DryGroup` of the axes'
+    size. Needs no ``torch.distributed``."""
+
+    def __init__(self, shape: tuple[int, ...], axes: tuple[str, ...], *,
+                 rank: int = 0, device="meta"):
+        super().__init__(shape, axes)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside the mesh's {self.size}")
+        self.rank = rank
+        self.device = torch.device(device)
+        self.coords = self.coords_of(rank)
+
+    def group(self, axes) -> DryGroup:
+        key = (axes,) if isinstance(axes, str) else tuple(sorted(axes))
+        if not set(key) <= set(self.axis_names):
+            raise ValueError(f"no group over {axes}: the mesh's axes are "
+                             f"{self.axis_names}")
+        return DryGroup(key, math.prod(self.shape[a] for a in key))
+
+    def __repr__(self) -> str:
+        return f"DryMesh({self.shape}, rank={self.rank})"
+
+
+def production_shape(multi_pod: bool) -> tuple[tuple[int, ...],
+                                              tuple[str, ...]]:
+    """The reference's production mesh: single-pod (16, 16) = ("data",
+    "model"), multi-pod (2, 16, 16) = ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device=None
               ) -> ProcessMesh:
     """A mesh over the initialized default group, e.g. ``make_mesh((2, 2),
@@ -118,7 +162,5 @@ def make_production_mesh(*, multi_pod: bool = False, device=None
     """The reference's production mesh over an initialized world of its
     size: single-pod (16, 16) = ("data", "model"), multi-pod (2, 16, 16) =
     ("pod", "data", "model")."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return ProcessMesh(shape, axes, device=device)
+    return ProcessMesh(*production_shape(multi_pod), device=device)
 

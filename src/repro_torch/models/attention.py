@@ -39,6 +39,7 @@ from repro_torch.kernels.flash_decode.ref import NEG_INF, decode_attention_ref
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
                                        dtype_of, init_norm, tp_active)
 from repro_torch.parallel.sharding import Sharding
+from repro_torch.core.collectives import tagged
 from repro_torch.parallel.tensor_parallel import (copy_to_model, gather_leaf,
                                                   gather_over_model,
                                                   sum_over_model)
@@ -271,7 +272,8 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
             from repro_torch.parallel.sharding import Sharding, Spec
             from repro_torch.parallel.tensor_parallel import gather_dims
             sh = Sharding(pctx.mesh, Spec(*([None] * cut[0]), pctx.tp_axis))
-            ka, va = (gather_dims(t, sh, cut) for t in (k, v))
+            with tagged("kv_cache_gather"):
+                ka, va = (gather_dims(t, sh, cut) for t in (k, v))
     else:
         q, k_new, v_new = gqa_qkv(p, x, cfg, pos_b[:, None])
         _write_kv(k, pos_b, k_new[:, 0])

@@ -44,7 +44,7 @@ import math
 import torch
 
 from repro_torch.config import ArchConfig
-from repro_torch.core.collectives import all_to_all
+from repro_torch.core.collectives import all_to_all, tagged
 from repro_torch.models.layers import (_act, dense_init, dtype_of, mlp_tp,
                                        tp_active)
 from repro_torch.parallel.tensor_parallel import copy_to_model, sum_over_model
@@ -345,7 +345,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ArchConfig,
         group = mesh.group("data")
 
         def fn(t):
-            return all_to_all(t[0], group)[None]
+            with tagged("ep_all_to_all"):
+                return all_to_all(t[0], group)[None]
 
         y = _moe_body(xt, p["router"], *ws, cfg, fn, tp_pctx)
     else:

@@ -232,7 +232,8 @@ class SSDFunction(torch.autograd.Function):
         ctx.chunk = chunk
         ctx.save_for_backward(x, dt, A, B, C)
         ctx.set_materialize_grads(False)
-        if x.device.type == "cuda":
+        if x.device.type in ("cuda", "meta"):
+            # meta: the kernel's custom op, as the dry run traces the card
             return _ssd_on_card(x, dt, A, B, C, chunk)
         return ssd_chunked(x, dt, A, B, C, chunk)
 

@@ -30,7 +30,8 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        dtype_of, embed_tokens, init_embedding,
                                        init_mlp, init_norm, lm_loss, logits)
 from repro_torch.parallel.sharding import Sharding, is_spec, param_specs
-from repro_torch.parallel.tensor_parallel import gather_leaf
+from repro_torch.parallel.tensor_parallel import (cut_seq, gather_leaf,
+                                                  gather_seq)
 
 
 def _is_hybrid(cfg: ArchConfig) -> bool:
@@ -123,13 +124,35 @@ def _unfsdp(p: dict, cfg: ArchConfig, pctx, kind: str,
     return tree_util.unflatten(p, out), specs
 
 
-def _hint(x, cfg: ArchConfig, pctx):
-    """The reference's ``_hint`` as a check: under a sharded context the
-    residual stream is this rank's rows at the full width (the ``model``
-    ranks of a batch row hold it whole and identical)."""
+def _seq_split(pctx, seq_len: int) -> bool:
+    return pctx is not None and pctx.seq_split(seq_len)
+
+
+def _check_stream(x, cfg: ArchConfig, pctx) -> None:
     if pctx is not None and pctx.sharded and x.shape[-1] != cfg.d_model:
         raise ValueError(f"residual stream {tuple(x.shape)} is not this "
                          f"rank's rows at d_model {cfg.d_model}")
+
+
+def _hint(x, cfg: ArchConfig, pctx, seq_len: int):
+    """The reference's ``_hint``: the residual stream of a ``seq_len``
+    sequence as it lies between blocks. Under a sharded context it is this
+    rank's rows at the full width; with ``seq_shard`` (where
+    ``pctx.seq_split(seq_len)``) only this rank's ``seq_len / tp`` of the
+    sequence, cut from a whole stream here (:func:`cut_seq`) and left as it
+    is when it arrives cut."""
+    _check_stream(x, cfg, pctx)
+    if _seq_split(pctx, seq_len) and x.shape[1] == seq_len:
+        return cut_seq(x, pctx)
+    return x
+
+
+def _whole(x, pctx, seq_len: int):
+    """A residual stream that :func:`_hint` may have cut, whole again
+    (:func:`gather_seq`): a block's input, the final norm's, the MTP
+    head's."""
+    if _seq_split(pctx, seq_len) and x.shape[1] != seq_len:
+        return gather_seq(x, pctx)
     return x
 
 
@@ -191,13 +214,18 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
     parallelism over its mesh's ``data`` axis) and, on a sharded mesh,
     every layer: ``p`` holds this rank's blocks (``param_specs``), the
     layer's ``data`` shards are gathered at its entry and attention, the
-    FFN and the Mamba-2 block run split over ``model``."""
+    FFN and the Mamba-2 block run split over ``model``. With ``seq_shard``
+    the stream arrives whole or as this rank's rows of the ``S`` positions
+    of ``positions`` (B, S) and leaves as :func:`_hint` lays it out: the
+    block runs on the whole stream, as without it."""
     p, specs = _unfsdp(p, cfg, pctx, kind)
-    x = _hint(x, cfg, pctx)
+    S = positions.shape[1]
+    _check_stream(x, cfg, pctx)
+    x = _whole(x, pctx, S)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
         y, state = ssm_lib.mamba2_forward(p["ssm"], h, cfg, pctx)
-        return x + y, state
+        return _hint(x + y, cfg, pctx, S), state
     a_specs = None if specs is None else specs["attn"]
     if cfg.mla is not None:
         y, cache = attn.mla_attention(p["attn"], h, cfg, positions=positions,
@@ -212,7 +240,7 @@ def block_forward(p: dict, x, cfg: ArchConfig, kind: str, *, positions,
         kv = attn.cross_kv(p["xattn"], cross, cfg, pctx, x_specs)
         x = x + attn.cross_attention(p["xattn"], hx, cfg, kv, pctx, x_specs)
     h2 = apply_norm(p["ln2"], x, cfg)
-    return x + _ffn(p, h2, cfg, kind, pctx), cache
+    return _hint(x + _ffn(p, h2, cfg, kind, pctx), cfg, pctx, S), cache
 
 
 def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos,
@@ -222,7 +250,7 @@ def block_decode(p: dict, x, cfg: ArchConfig, kind: str, *, cache, pos,
     self-attention. On a sharded mesh ``cache`` (and ``cross_kv``) are this
     rank's blocks, as prefill leaves them."""
     p, specs = _unfsdp(p, cfg, pctx, kind)
-    x = _hint(x, cfg, pctx)
+    x = _hint(x, cfg, pctx, x.shape[1])
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "ssm":
         y, state = ssm_lib.mamba2_decode(p["ssm"], h, cfg, cache, pctx)
@@ -271,8 +299,11 @@ def stack_forward(stack, x, cfg, kind, *, positions, pctx=None,
     caches), each cache leaf stacked on a leading layer axis:
     k/v (L, B, S, K, hd) for attention, c_kv (L, B, S, kv_lora) and k_rope
     (L, B, S, rope) for MLA; for ``kind="ssm"`` the states
-    ``{"conv": (sx, sB, sC) each (L, B, W-1, C), "ssm": (L, B, h, p, n)}``."""
+    ``{"conv": (sx, sB, sC) each (L, B, W-1, C), "ssm": (L, B, h, p, n)}``.
+    ``x`` and the returned stream lie as :func:`_hint` lays them out: with
+    ``seq_shard`` each layer's checkpointed input is this rank's rows."""
     n = stack["ln1"]["scale"].shape[0]
+    x = _hint(x, cfg, pctx, positions.shape[1])
     caches = []
     for i in range(n):
         layer_p = tree_util.tree_map(lambda t: t[i], stack)
@@ -395,6 +426,7 @@ class LM:
                 x, caches[key] = stack_forward(
                     params[f"{key}_stack"], x, cfg, kind,
                     positions=positions, pctx=pctx)
+        x = _whole(x, pctx, positions.shape[1])
         return apply_norm(params["final_norm"], x, cfg), caches
 
     # -------- train
@@ -435,6 +467,7 @@ class LM:
         positions = torch.arange(S, device=z.device).expand(B, S)
         z, _ = block_forward(mtp["block"], z, cfg, self._mtp_kind,
                              positions=positions, pctx=pctx)
+        z = _whole(z, pctx, S)
         return lm_loss(embed, z[:, :-1], batch["labels"][:, 2:], cfg)
 
     # -------- serving
@@ -534,6 +567,7 @@ class SSMLM:
         positions = torch.arange(S, device=x.device).expand(B, S)
         x, states = stack_forward(params["stack"], x, cfg, "ssm",
                                   positions=positions, pctx=pctx)
+        x = _whole(x, pctx, S)
         return apply_norm(params["final_norm"], x, cfg), states
 
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
@@ -666,7 +700,7 @@ class HybridLM:
                 x, cache = shared(x)
             ssm_states.append(states)
             attn_caches.append(cache)
-        h = apply_norm(params["final_norm"], x, cfg)
+        h = apply_norm(params["final_norm"], _whole(x, pctx, S), cfg)
         return h, ssm_states, attn_caches
 
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:
@@ -787,7 +821,7 @@ class EncDecLM:
         positions = torch.arange(S, device=x.device).expand(B, S)
         x, _ = stack_forward(params["encoder"], x, cfg, "encoder",
                              positions=positions, pctx=pctx, causal=False)
-        return apply_norm(params["enc_norm"], x, cfg)
+        return apply_norm(params["enc_norm"], _whole(x, pctx, S), cfg)
 
     def _decode_stack(self, params: dict, embed: dict, tokens, enc, pctx):
         """Final-normed decoder states and the self-attention caches; each
@@ -800,6 +834,7 @@ class EncDecLM:
         positions = torch.arange(S, device=x.device).expand(B, S)
         x, caches = stack_forward(params["decoder"], x, cfg, "decoder",
                                   positions=positions, pctx=pctx, cross=enc)
+        x = _whole(x, pctx, S)
         return apply_norm(params["final_norm"], x, cfg), caches
 
     def loss_fn(self, params: dict, batch: dict, pctx=None) -> torch.Tensor:

@@ -11,10 +11,18 @@ The port has no partitioner to choose between gathering weights and
 reducing activations, so a sharded model always gathers its ``data``-
 sharded weights at use: numerically what the reference does with
 ``gather_weights=True``, and the port has no such switch (ROADMAP.md
-queue 3). Nor has it the reference's ``pp_axis``, which no code there
-reads either. Every model family runs on a sharded context; ``seq_shard``
-(sequence parallelism), the one part of ROADMAP.md queue 1 item 6b left,
-raises: its only user in the reference is the dry run's flags (item 9).
+queue 3, R10). Nor has it the reference's ``pp_axis``, which no code there
+reads either. Every model family runs on a sharded context.
+
+``seq_shard`` is Megatron-style sequence parallelism of the residual
+stream (the reference's ``_hint``): between blocks a rank holds its
+``S/tp`` rows of the sequence, gathered whole over ``model`` at each
+block's entry and cut again after the block's closing sum, so the
+checkpointed layer inputs shrink by the ``model`` size while every block
+computes what it computes without it (:meth:`ParallelCtx.seq_split` says
+when it applies; :mod:`repro_torch.models.transformer` applies it). Off by
+default, as in the reference; its one user there is the dry run's
+``extra_flags`` (:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -32,12 +40,6 @@ class ParallelCtx:
     #: Megatron-style sequence parallelism of the residual stream
     seq_shard: bool = False
 
-    def __post_init__(self):
-        if self.seq_shard:
-            raise NotImplementedError(
-                "seq_shard (sequence parallelism over the model axis) is not "
-                "ported to repro_torch yet (ROADMAP.md queue 1 item 6b)")
-
     @property
     def dp_size(self) -> int:
         return int(math.prod(self.mesh.shape[a] for a in self.dp_axes))
@@ -53,6 +55,17 @@ class ParallelCtx:
         every rank (plain data parallelism; MoE experts replicated, each
         rank computing its own slice)."""
         return self.tp_axis in self.mesh.axis_names
+
+    def seq_split(self, seq_len: int) -> bool:
+        """Whether a residual stream of ``seq_len`` positions lies between
+        blocks as this rank's ``seq_len / tp`` of them: ``seq_shard`` on a
+        sharded context of more than one ``model`` rank, and, as the
+        reference's ``_hint`` rules, more than one position that the
+        ``model`` size divides (so a decode step's one token never
+        splits)."""
+        tp = self.tp_size
+        return (self.seq_shard and self.sharded and tp > 1 and seq_len > 1
+                and seq_len % tp == 0)
 
 
 def make_parallel_ctx(mesh) -> ParallelCtx:

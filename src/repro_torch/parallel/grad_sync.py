@@ -41,11 +41,10 @@ import math
 from typing import Sequence
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import tree as tree_util
 from repro_torch.core.collectives import (all_gather_stack, flat_allreduce,
-                                          hierarchical_allreduce,
+                                          group_size, hierarchical_allreduce,
                                           hierarchical_schedule)
 from repro_torch.core.comm import CommPolicy
 from repro_torch.core.planner import GRAD_SYNC_STRATEGIES as STRATEGIES
@@ -227,10 +226,12 @@ def sync_sharded_gradients(grads, shardings, mesh, *,
     rep = sync_gradients(rep, mesh, strategy=strategy, policy=policy,
                          mean_over=mean_over, allow_lossy=allow_lossy)
     pods = int(mesh.shape.get("pod", 1))
-    buckets, spec = flatten_to_buckets(zero, policy.bucket_bytes(pods))
     if pods > 1:
+        buckets, spec = flatten_to_buckets(zero, policy.bucket_bytes(pods))
         buckets = [sum_across(b, mesh.group("pod")) for b in buckets]
-    zero = unflatten_from_buckets([b / mean_over for b in buckets], spec)
+        zero = unflatten_from_buckets([b / mean_over for b in buckets], spec)
+    else:   # nothing crosses pods: the same float32 division, leaf by leaf
+        zero = [(g.float() / mean_over).to(g.dtype) for g in zero]
     it_rep, it_zero = iter(rep), iter(zero)
     return tree_util.unflatten(grads, [next(it_zero) if o else next(it_rep)
                                        for o in over])
@@ -244,7 +245,7 @@ def _compressed_inter(shard: torch.Tensor, inter) -> torch.Tensor:
     are summed by ``combine`` in int32, which equals the int16 sum exactly
     (|sum| <= 255·127 < 2^24); the shard is dequantized by the mean of the
     scales. Error feedback is the caller's job (:class:`CompressedSync`)."""
-    m = dist.get_world_size(inter)
+    m = group_size(inter)
     scale = torch.clamp(torch.amax(torch.abs(shard)) / 127.0, min=1e-20)
     q = torch.round(shard / scale).to(torch.int8)
     wire = torch.int16 if m <= 255 else torch.int32

@@ -17,7 +17,16 @@ reference's specs are written out here, in the style of
 * :class:`GatherOverModel` — an activation's blocks gathered over
   ``model``: all-gather forward; backward a reduce-scatter over ``model``,
   whose ranks each used the whole for their own heads (Mamba-2's B and C,
-  computed on this rank's ``d_state`` block, enter every rank's heads).
+  computed on this rank's ``d_state`` block, enter every rank's heads);
+* :class:`GatherSeq` and :class:`CutSeq` — ``seq_shard``'s residual
+  stream: a block's entry gathers the rank's ``S/tp`` rows whole over
+  ``model`` (backward: this rank's rows of the gradient), and its exit cuts
+  the rank's rows from the block's output (backward: the rows gathered
+  whole). Inside a block the stream and its gradient are the same on every
+  ``model`` rank, as without ``seq_shard`` (the branches' own
+  :class:`CopyToModel` has already summed their gradients), so neither
+  needs a sum, and the block's values and gradients are its unsharded ones
+  bit for bit.
 
 Every sum is an all-gather of the parts plus ``combine`` over them in rank
 order (:func:`repro_torch.kernels.allreduce_combine.ops.combine_parts`:
@@ -34,8 +43,8 @@ import contextlib
 
 import torch
 
-from repro_torch.core.collectives import (all_gather_stack,
-                                          reduce_scatter_combine)
+from repro_torch.core.collectives import (all_gather_stack, group_size,
+                                          reduce_scatter_combine, tagged)
 from repro_torch.kernels.allreduce_combine.ops import combine_parts
 
 
@@ -58,7 +67,8 @@ class CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return sum_across(g.contiguous(), ctx.group), None
+        with tagged("sum_over_model"):
+            return sum_across(g.contiguous(), ctx.group), None
 
 
 class SumOverModel(torch.autograd.Function):
@@ -67,7 +77,8 @@ class SumOverModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        return sum_across(x.contiguous(), group)
+        with tagged("sum_over_model"):
+            return sum_across(x.contiguous(), group)
 
     @staticmethod
     def backward(ctx, g):
@@ -83,13 +94,65 @@ class GatherOverModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
-        return _gather_dim(x, dim, group)
+        with tagged("gather_over_model"):
+            return _gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
         d = ctx.dim
-        g = reduce_scatter_combine(g.movedim(d, 0).contiguous(), ctx.group)
+        with tagged("gather_over_model"):
+            g = reduce_scatter_combine(g.movedim(d, 0).contiguous(),
+                                       ctx.group)
         return g.movedim(0, d).contiguous(), None, None
+
+
+class GatherSeq(torch.autograd.Function):
+    """``apply(x, group, index)``: ``x`` (B, S/k, ...), this rank's rows of
+    the sequence (the ``index``-th of ``group``'s k blocks), gathered to (B,
+    S, ...) in group-rank order forward; backward this rank's rows of the
+    gradient, which every rank of ``group`` holds whole and identical."""
+
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.index, ctx.n = index, x.shape[1]
+        with tagged("seq_gather"):
+            return _gather_dim(x.contiguous(), 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.index * ctx.n, ctx.n).contiguous(), None, None
+
+
+class CutSeq(torch.autograd.Function):
+    """``apply(x, group, index)``: the ``index``-th of ``group``'s k blocks
+    of ``x``'s sequence (dim 1; ``x`` the same on every rank), a copy of its
+    own (no view keeps the whole alive) forward; backward every rank's
+    block of the gradient gathered whole."""
+
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.group = group
+        n = x.shape[1] // group_size(group)
+        return x.narrow(1, index * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        with tagged("seq_gather"):
+            return _gather_dim(g.contiguous(), 1, ctx.group), None, None
+
+
+def gather_seq(x: torch.Tensor, pctx) -> torch.Tensor:
+    """This rank's rows of a ``seq_shard`` stream gathered whole over
+    ``model`` (see :class:`GatherSeq`)."""
+    return GatherSeq.apply(x, pctx.mesh.group(pctx.tp_axis),
+                           pctx.mesh.coords[pctx.tp_axis])
+
+
+def cut_seq(x: torch.Tensor, pctx) -> torch.Tensor:
+    """This rank's ``S/tp`` rows of a whole stream (see :class:`CutSeq`)."""
+    return CutSeq.apply(x, pctx.mesh.group(pctx.tp_axis),
+                        pctx.mesh.coords[pctx.tp_axis])
 
 
 def copy_to_model(x: torch.Tensor, pctx) -> torch.Tensor:
@@ -146,7 +209,8 @@ class GatherLeaf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sharding, dims, reduce_axes):
         ctx.sharding, ctx.dims, ctx.reduce = sharding, dims, reduce_axes
-        return gather_dims(x, sharding, dims)
+        with tagged("weight_gather"):
+            return gather_dims(x, sharding, dims)
 
     @staticmethod
     def backward(ctx, g):
@@ -159,8 +223,10 @@ class GatherLeaf(torch.autograd.Function):
             if not axes:
                 continue
             if set(axes) & set(ctx.reduce):
-                g = reduce_scatter_combine(g.movedim(d, 0).contiguous(),
-                                           sh.mesh.group(axes)).movedim(0, d)
+                with tagged("weight_grad_reduce_scatter"):
+                    g = reduce_scatter_combine(g.movedim(d, 0).contiguous(),
+                                               sh.mesh.group(axes))
+                g = g.movedim(0, d)
             else:
                 n = g.shape[d] // sh.parts(g.shape)[d]
                 g = g.narrow(d, index[d] * n, n)
@@ -212,5 +278,6 @@ def gather_leaf(x: torch.Tensor, sharding, pctx, axes=None) -> torch.Tensor:
     key = _kept_key(x, sharding, dims)
     if key not in _kept:
         # the block is held with its copy, so its storage is not reused
-        _kept[key] = (x, gather_dims(x, sharding, dims))
+        with tagged("weight_gather"):
+            _kept[key] = (x, gather_dims(x, sharding, dims))
     return _kept[key][1]

@@ -23,6 +23,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.core.collectives import tagged
 from repro_torch.device import resolve_device
 from repro_torch.parallel.ctx import make_parallel_ctx
 from repro_torch.parallel.grad_sync import (sync_gradients,
@@ -87,7 +88,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, pctx=None,
                                            grads, g_i)
             loss = loss / microbatches
             grads = tree_util.tree_map(lambda g: g / microbatches, grads)
-        with torch.no_grad():
+        with torch.no_grad(), tagged("grad_sync"):
             if sync_fn is not None:
                 grads = sync_fn(grads)
             new_params, new_opt, metrics = adamw_update(grads, opt_state,

@@ -145,3 +145,25 @@ def test_matmul_slice_is_scanned_builds_nothing_and_names_no_tpu_spec():
                      if p != PORT / "roofline" / "hw.py"
                      and "V5E" in p.read_text())
     assert readers == ["core/comm.py", "core/machine.py"]
+
+
+def test_dry_run_is_scanned_builds_nothing_and_names_no_tpu_spec():
+    """The dry run and the kernels' meta route are in the scan above;
+    importing them builds no kernel; the dry run's roofline is the H100's
+    and its module names no TPU spec, as the port's roofline modules."""
+    for mod in ("launch/dryrun.py", "kernels/_meta.py"):
+        assert PORT / mod in FILES
+    code = ("import repro_torch.launch.dryrun\n"
+            "from repro_torch.kernels import _build\n"
+            "assert not _build._libs and not _build.build_logs\n"
+            "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(PORT.parent)}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0 and res.stdout.startswith("ok"), res.stderr
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import hw
+    text = (PORT / "launch" / "dryrun.py").read_text()
+    assert "v5e" not in text.lower()
+    assert dryrun.roofline.__defaults__ == (hw.H100,)
+    assert dryrun.H100 is hw.H100

@@ -286,13 +286,3 @@ def test_addr_of_names_the_references_replicas():
                      "local_index": list(g["local_index"])} for g in got] \
                 == wi, (spec, i)
             assert [g["rank"] for g in got] == sorted(g["rank"] for g in got)
-
-
-def test_unported_sharded_paths_raise_naming_item_6b():
-    """What sharding leaves to ROADMAP.md queue 1 item 6b refuses with
-    NotImplementedError: sequence parallelism (every model family runs on
-    a sharded mesh, tests/test_torch_sharded_families.py)."""
-    from repro_torch.parallel.ctx import ParallelCtx
-    mesh = TorchAbstractMesh(*MESHES["2x2x2"])
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ParallelCtx(mesh=mesh, seq_shard=True)

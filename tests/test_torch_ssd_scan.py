@@ -154,8 +154,14 @@ def test_card_route_pads_ragged_length_and_checks_groups():
 
 def test_entry_point_dispatch_and_kernel_checks():
     arrs = _to_torch(_inputs(1, 32, 2, 8, 16, seed=8), "float32")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        ssd(*(t.to("meta") for t in arrs), chunk=16)
+    # meta tensors take the kernel's custom op (the dry run's route): its
+    # output shapes, never the plain version, and the kernel's refusals
+    y, final = ssd(*(t.to("meta") for t in arrs), chunk=16)
+    assert (y.device.type, tuple(y.shape), y.dtype) == \
+        ("meta", (1, 32, 2, 8), torch.float32)
+    assert tuple(final.shape) == (1, 2, 8, 16)
+    with pytest.raises(ValueError, match="l % chunk"):
+        ssd(*(t.to("meta") for t in arrs), chunk=24)
     # the kernel wrapper takes CUDA tensors only; nothing falls back
     with pytest.raises(ValueError, match="CUDA device"):
         ssd_kernel.ssd_scan(*arrs, chunk=16)
