@@ -36,8 +36,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             kernel (graph replay and eager), plain version and one library
             call (scaled_dot_product_attention, a yardstick the port never
             calls) against the least time the card could take (and the
-            same at FD_MODEL_TIMING's two shapes), and what the
-            check reads for two planted faults (one CTA's partial dropped,
+            same at FD_MODEL_TIMING's two shapes, and for the log-sum-exp
+            form at FD_LSE_TIMING's block of a long_500k cache), and what
+            the check reads for two planted faults (one CTA's partial dropped,
             which it must see; P rounded to bf16 before P.V); and the
             schedule's span, grid and CTAs per SM.
 4. combine  holds allreduce_combine against its plain version: the
@@ -341,7 +342,20 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             (shard_expected_combines), ssd_scan per SSM layer and step,
             flash_decode per attention layer and decode_step; the kernels
             on each rank's own inputs (ssd_scan on its first layer's SSD,
-            flash_decode on its caches).
+            flash_decode on its caches). (f) zamba2-2.7b as (e) cuts it
+            over the whole long_500k window at batch 1 (SEQ_DECODE): the
+            caches' 524,288 positions split over data (262,144 and 16 of
+            32 KV heads a rank), drawn from seeds block by block, 4
+            decode_steps under keep_gathered across the blocks' boundary,
+            each rank attending its block through flash_decode's lse form
+            and the parts merged over data by combine; gates: the lse form
+            twice a step and combine as the dry run reckons this rank's
+            cut cell, every step's collective bytes by op the dry run's
+            (weight gathers aside: keep_gathered makes them once), logits
+            and caches against rank 0's unsharded decode on the whole
+            caches (SHARD_BF16_TOL beyond twice its distance from its
+            float32 twin), the lse form against its plain version on each
+            rank's own block, an empty block included.
 29. whisper_train  full-width whisper-small (EncDecLM: 12 encoder and 12
             decoder layers, d_model 768, 12 heads of 64, GELU, LayerNorm,
             learned positions, vocab 51,865; 0.30 B parameters; bf16,
@@ -514,6 +528,11 @@ SERVE_SHAPE = dict(B=8, H=12, K=4, dk=64, dv=64, S=2048)
 #: the fixed costs, sets the time
 FD_TIMING = {"serving": (SERVE_SHAPE, 8),
              "long": (dict(B=8, H=64, K=8, dk=128, dv=128, S=8192), 3)}
+#: the lse form's timing shape (decode_attn(..., lse=True)): one rank's
+#: block of zamba2-2.7b's long_500k caches in phase 28 (f), batch 1, 16 of
+#: 32 heads, 262,144 of 524,288 positions, head dim 80, bf16, every
+#: position live; two caches (1.34 GB each) taken in turn
+FD_LSE_TIMING = (dict(B=1, H=16, K=16, dk=80, dv=80, S=262_144), 2)
 #: the shapes the encoder-decoder and VLM decodes give flash_decode, checked
 #: in f32 and bf16 and timed in bf16 like FD_TIMING's, with the number of
 #: caches taken in turn and whether every row is at its full length:
@@ -761,6 +780,20 @@ SHARD_FAMILY_DECODE = 16
 #: (e)'s ranks draw their full trees at once while they fit in this many GB
 #: of the card together, else in waves
 SHARD_DRAW_GB = 16.0
+#: phase 28 (f): zamba2-2.7b at full width with its depth cut as (e) cuts
+#: it (12 layers: 2 groups, the shared attention block twice), decoding one
+#: token a step at batch 1 over the whole long_500k window on the same eight
+#: ranks: the batch does not divide the batch axes, so cache_specs puts the
+#: KV caches' 524,288 positions over data (262,144 a rank) and their 32 KV
+#: heads over model (16 a rank). Prefilling 524,288 tokens through the f32
+#: flash attention is out of reach, so the caches and SSM states are drawn
+#: from torch.Generator seeds, one for each (leaf, group, block as
+#: cache_specs cuts it): each rank draws its own blocks, and rank 0's whole
+#: twin (10.7 GB of K/V) is their concatenation. 4 decode_steps from
+#: position 262,142: data 0's block partial (262,143 live) then full, data
+#: 1's empty twice, then partial (1, then 2 live)
+SEQ_DECODE = dict(arch="zamba2-2.7b", cut={"n_layers": 12}, window=524_288,
+                  pos=262_142, steps=4, seed=31_000)
 #: phase 38's full-width cells on the production meshes, one a family:
 #: (label, arch, shape, multi_pod); decode cells (a few seconds each on
 #: the host: no flash-attention block loop) and Mamba-2's long_500k
@@ -1067,6 +1100,26 @@ def make_case(B, H, K, dk, dv, S, dtype, seed, full: bool = False):
     return q, k, v, kp, vp, lengths
 
 
+def make_case_on_card(B, H, K, dk, dv, S, dtype, seed, full: bool = False):
+    """make_case's tensors drawn on the card from torch.Generator ``seed``
+    (a cache of 1.34 GB takes seconds to draw on the host): q, k, v,
+    lengths per row in [1, S] (``full``: every row at S), and the kernel's
+    copies of k and v with NaN past each row's length (k and v themselves
+    where every row is full)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((B, H, dk), (B, S, K, dk), (B, S, K, dv)))
+    lengths = (torch.full((B,), S, dtype=torch.int32, device="cuda") if full
+               else torch.randint(1, S + 1, (B,), generator=gen,
+                                  device="cuda", dtype=torch.int32))
+    if full:
+        return q, k, v, k, v, lengths
+    dead = ~(torch.arange(S, device="cuda")[None, :]
+             < lengths[:, None].long())[:, :, None, None]
+    return (q, k, v, k.masked_fill(dead, float("nan")),
+            v.masked_fill(dead, float("nan")), lengths)
+
+
 def fd_reading(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| / (atol + rtol |want|) at FD_TOL of want's dtype: at
     most 1 passes; inf where got is not finite or the shapes differ."""
@@ -1186,16 +1239,16 @@ def fd_graph_check(decode_attn, ref) -> dict:
 
 
 def fd_timing(label, shape, n_sets, decode_attn, ref, hbm_bytes, hbm,
-              peak, full: bool = False) -> dict:
+              peak, full: bool = False, case=make_case) -> dict:
     """flash_decode at one timing shape in bf16, ragged lengths from
-    make_case (``full``: every row at S), n_sets distinct caches taken in
-    turn: the kernel (CUDA-graph
+    ``case`` (make_case; ``full``: every row at S), n_sets distinct caches
+    taken in turn: the kernel (CUDA-graph
     replay and eager), the plain version and one library call
     (scaled_dot_product_attention, a yardstick the port never calls) beside
     the least time the card could take. The first case, NaN-poisoned past
     each row's length, is held against the plain version first."""
     B, H, K, dk, dv, S = (shape[x] for x in ("B", "H", "K", "dk", "dv", "S"))
-    first = make_case(B, H, K, dk, dv, S, torch.bfloat16, 30, full)
+    first = case(B, H, K, dk, dv, S, torch.bfloat16, 30, full)
     q, k, v, kp, vp, lengths = first
     got = decode_attn(q, kp, vp, lengths)
     want = ref(q, k, v, lengths)
@@ -1206,9 +1259,8 @@ def fd_timing(label, shape, n_sets, decode_attn, ref, hbm_bytes, hbm,
         raise AssertionError(f"flash_decode disagrees at the {label} timing "
                              f"shape: reading {reading} > 1 ({FD_TOL_TEXT})")
     del kp, vp, got, want
-    sets = [(q, k, v)] + [make_case(B, H, K, dk, dv, S, torch.bfloat16,
-                                    30 + j, full)[:3]
-                          for j in range(1, n_sets)]
+    sets = [(q, k, v)] + [case(B, H, K, dk, dv, S, torch.bfloat16, 30 + j,
+                               full)[:3] for j in range(1, n_sets)]
     del first
     turn = {"i": 0}
 
@@ -4014,6 +4066,40 @@ def _cut_cache(name: str, t: torch.Tensor, spec, mesh,
     return t[Sharding(mesh, spec).slices(t.shape, coords)]
 
 
+def _drawn_blocks(model, rank: int, mesh, pctx, dev) -> tuple:
+    """(this rank's parameter blocks, ``draw``, the meta tree, its specs'
+    leaves, the wave): ``draw()`` gives the full tree, drawn on the card
+    from torch.Generator seed 0, which each rank cuts to its blocks by
+    ``param_specs``; the ranks draw in waves while the trees fit
+    SHARD_DRAW_GB together."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.parallel.sharding import Sharding, is_spec, param_specs
+
+    def draw():
+        return model.init(torch.Generator(dev).manual_seed(0), device=dev)
+
+    world = dist.get_world_size()
+    meta = model.init(None, device="meta")
+    spec_l = tree_util.leaves(param_specs(meta, model.cfg, pctx),
+                              is_leaf=is_spec)
+    size = sum(t.numel() * t.element_size() for t in tree_util.leaves(meta))
+    wave = max(1, min(world, int(SHARD_DRAW_GB * 1e9 // size)))
+    params = None
+    for first in range(0, world, wave):
+        if first <= rank < first + wave:
+            full = draw()
+            params = tree_util.unflatten(full, [
+                Sharding(mesh, sp).shard(t)
+                for sp, t in zip(spec_l, tree_util.leaves(full))])
+            del full
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return params, draw, meta, spec_l, wave
+
+
 def shard_family(fam: tuple, rank: int, mesh, pctx, dev) -> dict:
     """Phase 28 (e) for one of SHARD_FAMILIES on this rank: its readings
     (train, decode, bytes, launches, the kernels on its own inputs, and,
@@ -4056,23 +4142,8 @@ def shard_family(fam: tuple, rank: int, mesh, pctx, dev) -> dict:
                    for t, s in zip(tree_util.leaves(tree),
                                    tree_util.leaves(sp, is_leaf=is_spec)))
 
-    def draw():
-        return model.init(torch.Generator(dev).manual_seed(0), device=dev)
-
-    meta = model.init(None, device="meta")
-    spec_l = tree_util.leaves(param_specs(meta, cfg, pctx), is_leaf=is_spec)
-    wave = max(1, min(world, int(SHARD_DRAW_GB * 1e9 // nbytes(meta))))
-    params = None
-    for first in range(0, world, wave):
-        if first <= rank < first + wave:
-            full = draw()
-            params = tree_util.unflatten(full, [
-                Sharding(mesh, sp).shard(t)
-                for sp, t in zip(spec_l, tree_util.leaves(full))])
-            del full
-            if on_card:
-                torch.cuda.empty_cache()
-        dist.barrier()
+    params, draw, meta, spec_l, wave = _drawn_blocks(model, rank, mesh, pctx,
+                                                     dev)
     batch = SyntheticTokens(cfg, batch=SHARD["global_batch"], seq=seq,
                             seed=29, device=dev).batch_at(0)
     local = shard_batch(batch, pctx)
@@ -4438,6 +4509,278 @@ def shard_step_readings(model, draw, dev, batch, opt_cfg, p1, g1, spec_l,
                 (r["zero_grad_share"] for r in reads.values()
                  if "zero_grad_share" in r), default=0.0),
             "leaves": reads}
+
+
+def _seq_blocks(t, spec, mesh, seed: int, dev, coords=None):
+    """A cache leaf ``t`` (meta; a leading group dim) drawn block by block
+    as ``spec`` cuts it, one torch.Generator seed a block (``seed``, the
+    group and the block's index): with ``coords`` only the block that rank
+    holds, (G, *local); else the whole leaf, every block in its place."""
+    import itertools
+
+    from repro_torch.parallel.sharding import Sharding
+    sh = Sharding(mesh, spec)
+    parts = sh.parts(t.shape)
+    local = sh.local_shape(t.shape)
+
+    def block(g, index, into=None):
+        # drawn into a contiguous tensor of the block's shape (the same
+        # values wherever it lies)
+        n = 0
+        for i, p in zip(index, parts):
+            n = n * p + i
+        gen = torch.Generator(dev).manual_seed(seed + 1000 * g + n)
+        if into is None:
+            into = torch.empty(local[1:], dtype=t.dtype, device=dev)
+        return into.normal_(generator=gen)
+
+    if coords is not None:
+        index = sh.block_index(coords, t.dim())
+        out = torch.empty(local, dtype=t.dtype, device=dev)
+        for g in range(t.shape[0]):
+            block(g, index, out[g])
+        return out
+    whole = torch.empty(t.shape, dtype=t.dtype, device=dev)
+    for index in itertools.product(*(range(p) for p in parts)):
+        at = tuple(slice(i * n, (i + 1) * n) for i, n in zip(index, local))
+        for g in range(t.shape[0]):
+            whole[g][at[1:]] = block(g, index)
+    return whole
+
+
+def _lse_check(fd, q, k, v, lengths) -> dict:
+    """flash_decode's log-sum-exp form on one rank's cache block against
+    its plain version: ``out`` (float32) and ``lse`` read at FD_TOL of the
+    inputs' dtype, a row of length 0 exactly 0 and -inf."""
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    got, lse = fd.flash_decode(q, k, v, lengths, lse=True)
+    want, want_lse = decode_attention_ref(q, k, v, lengths, lse=True)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    atol, rtol = FD_TOL[q.dtype]
+    live = lengths > 0
+    empty_ok = bool((got[~live] == 0).all() and
+                    torch.isneginf(lse[~live]).all())
+
+    def reading(a, b):
+        if not a.numel():
+            return 0.0
+        if not bool(torch.isfinite(a).all()):
+            return math.inf
+        return ((a - b).abs() / (atol + rtol * b.abs())).max().item()
+
+    return {"lengths": lengths.tolist(),
+            "out_max_abs_err": (got - want).abs().max().item(),
+            "out_reading": reading(got[live], want[live]),
+            "lse_reading": reading(lse[live], want_lse[live]),
+            "empty_rows_exact": empty_ok, "tol": FD_TOL_TEXT}
+
+
+def shard_seq_decode(rank: int, mesh, pctx, dev) -> dict:
+    """Phase 28 (f) on this rank (SEQ_DECODE): the sharded decode over
+    caches split over data, its launches and collective bytes against the
+    dry run's reckoning of this rank for the same cut cell, the kernel's
+    lse form on the rank's own block; rank 0's unsharded bf16 decode on the
+    whole twin and its float32 twin's distance, and every rank's logits and
+    caches read against them."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import collectives
+    from repro_torch.kernels.allreduce_combine import kernel as ck
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import Sharding, cache_specs, is_spec
+    from repro_torch.parallel.tensor_parallel import keep_gathered
+
+    sd = SEQ_DECODE
+    on_card = dev.type == "cuda"
+    world = dist.get_world_size()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = shard_family_config(sd["arch"], sd["cut"])
+    model = build_model(cfg)
+    S, n, pos0 = sd["window"], sd["steps"], sd["pos"]
+    shape = ShapeConfig("long_500k", S, 1, "decode")
+    ctx = dataclasses.replace(pctx, decode_shape=(1, S))
+    t_draw = time.perf_counter()
+    params, draw, _, _, _ = _drawn_blocks(model, rank, mesh, pctx, dev)
+    cmeta = model.init_cache(1, S, device="meta")
+    cspecs = tree_util.leaves(cache_specs(cmeta, cfg, shape, pctx),
+                              is_leaf=is_spec)
+    seeds = [sd["seed"] + 100_000 * i for i in range(len(cspecs))]
+    caches = tree_util.unflatten(cmeta, [
+        _seq_blocks(t, sp, mesh, seed, dev, mesh.coords)
+        for t, sp, seed in zip(tree_util.leaves(cmeta), cspecs, seeds)])
+    sync()
+    draw_s = time.perf_counter() - t_draw
+    toks = torch.from_numpy(np.random.default_rng(sd["seed"]).integers(
+        0, cfg.vocab_size, n)).to(dev)
+    local = {k: list(t.shape) for k, t in tree_util.named_leaves(caches)}
+
+    # ---- the sharded decode: counts set to 0 just before, read just after
+    outs, wires = [], []
+    sync()
+    dist.barrier()
+    ck.launches = fd.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad(), keep_gathered():
+        for i in range(n):
+            with collectives.counting() as wire:
+                lg, caches = model.decode_step(params, caches, {
+                    "token": toks[i:i + 1], "pos": pos0 + i}, ctx)
+            outs.append(lg)
+            wires.append(wire)
+    sync()
+    wall = time.perf_counter() - t0
+    fd_n, ck_n = fd.launches, ck.launches
+    logits = torch.cat(outs, dim=1)
+
+    # ---- this rank's reckoning by the dry run: the same cut cell
+    cell, meta = dryrun.lower_cell(cfg, shape, False,
+                                   mesh_shape=SHARD["mesh"], rank=rank)
+    dry = dryrun.analyze(cell, meta)
+    out = {"arch": sd["arch"], "cut": sd["cut"], "window": S, "pos": pos0,
+           "steps": n, "draw_s": draw_s, "local_caches": local,
+           "ms_per_decode_step": wall / n * 1e3,
+           "flash_decode_launches": fd_n, "combine_launches": ck_n,
+           "finite": bool(torch.isfinite(logits).all().item()),
+           "wire_by_step": [{"bytes": w["bytes"], "by_op": w["by_op"]}
+                            for w in wires],
+           "dryrun": {"bytes": {k: dry["collective_bytes"][k]
+                                for k in collectives.KINDS},
+                      "by_op": dry["collective_bytes"]["by_op"],
+                      "kernels": dry["kernels"],
+                      "trace_s": dry["trace_s"]}}
+
+    # ---- the kernel's lse form on this rank's own block of group 0, at
+    # the local lengths of the first and the last step, the ranks in turns
+    # (the plain version widens the 1.3 GB block to float32)
+    blk = ctx.kv_seq_block(caches["attn"]["k"].shape[2])
+    start = 0 if blk is None else blk[0]
+    S_l = caches["attn"]["k"].shape[2]
+    H_l = cfg.n_heads // pctx.tp_size
+    q = torch.from_numpy(np.random.default_rng(sd["seed"] + rank)
+                         .standard_normal((1, H_l, cfg.resolved_head_dim),
+                                          np.float32)).to(dev, torch.bfloat16)
+    out["kernel_checks"] = []
+    for r in range(world):
+        if r == rank:
+            k0 = caches["attn"]["k"][0].contiguous()
+            v0 = caches["attn"]["v"][0].contiguous()
+            for p in (pos0, pos0 + n - 1):
+                ln = torch.tensor([min(max(p + 1 - start, 0), S_l)],
+                                  dtype=torch.int32, device=dev)
+                out["kernel_checks"].append(
+                    _lse_check(fd, q, k0, v0, ln) if on_card
+                    else {"lengths": ln.tolist()})
+            del k0, v0
+            if on_card:
+                torch.cuda.empty_cache()
+        dist.barrier()
+
+    # ---- rank 0: the unsharded decode on the whole twin (bf16), then its
+    # float32 twin from the same draw (the K/V widened in place: the
+    # positions the bf16 run wrote are written again before they are read)
+    payload = [None]
+    if rank == 0:
+        whole = tree_util.unflatten(cmeta, [
+            _seq_blocks(t, sp, mesh, seed, dev)
+            for t, sp, seed in zip(tree_util.leaves(cmeta), cspecs, seeds)])
+        states0 = [t.clone() for t in tree_util.leaves(whole["ssm"])]
+        full = draw()
+
+        def run(m, p, c):
+            res = []
+            with torch.no_grad():
+                for i in range(n):
+                    lg, c = m.decode_step(p, c, {"token": toks[i:i + 1],
+                                                 "pos": pos0 + i})
+                    res.append(lg)
+            return torch.cat(res, dim=1).float()
+
+        def new_part(c):
+            # what the steps change: the written K/V rows, the states
+            return {k: (t[:, :, pos0:pos0 + n] if k.startswith("attn")
+                        else t).clone()
+                    for k, t in tree_util.named_leaves(c)}
+
+        l16 = run(model, full, whole)
+        c16 = new_part(whole)
+        _widen_(whole["attn"])
+        whole["ssm"] = tree_util.unflatten(   # the states as drawn, widened
+            whole["ssm"], [t.float() for t in states0])
+        del states0
+        _widen_(full)
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        l32 = run(model32, full, whole)
+        c32 = new_part(whole)
+        del whole, full
+        if on_card:
+            torch.cuda.empty_cache()
+        payload[0] = {
+            "logits": l16.cpu(), "caches": {k: t.cpu() for k, t in
+                                            c16.items()},
+            "noise": {"logits": (l16 - l32).abs().max().item(),
+                      "caches": {k: (c16[k].float() - c32[k].float()).abs()
+                                 .max().item() for k in c16}}}
+        del c16, c32
+    dist.broadcast_object_list(payload, src=0)
+    ref = payload[0]
+    noise = ref["noise"]
+    out["bf16_noise"] = noise
+    out["logits_reading"] = _noisy_reading(logits.cpu(), ref["logits"],
+                                           noise["logits"], SHARD_BF16_TOL)
+    out["logits_max_abs_err"] = (logits.cpu().float() - ref["logits"]).abs(
+        ).max().item()
+
+    # ---- this rank's caches against its blocks of the unsharded ones,
+    # the ranks in turns: the rows the steps wrote here against the
+    # unsharded run's rows, every other K/V row bit for bit as drawn; the
+    # states against the unsharded run's final ones
+    reads = {}
+    for r in range(world):
+        if r != rank:
+            dist.barrier()
+            continue
+        for (k, t), tm, sp, seed in zip(tree_util.named_leaves(caches),
+                                        tree_util.leaves(cmeta), cspecs,
+                                        seeds):
+            at = Sharding(mesh, sp).slices(tm.shape, mesh.coords)
+            if k.startswith("attn"):
+                got_rows = [(i, pos0 + i - at[2].start) for i in range(n)
+                            if 0 <= pos0 + i - at[2].start < t.shape[2]]
+                steps = [i for i, _ in got_rows]
+                rows = [p for _, p in got_rows]
+                want_rows = ref["caches"][k][
+                    (slice(None), slice(None), steps) + at[3:]].to(dev)
+                drawn = _seq_blocks(tm, sp, mesh, seed, dev, mesh.coords)
+                drawn[:, :, rows] = t[:, :, rows]
+                same = bool(torch.equal(drawn, t))
+                del drawn
+                got, want = t[:, :, rows], want_rows
+            else:
+                same = True
+                got, want = t, ref["caches"][k][at].to(dev)
+            reading = _noisy_reading(got, want, noise["caches"][k],
+                                     SHARD_BF16_TOL) if got.numel() else 0.0
+            reads[k] = {"reading": reading if same else math.inf,
+                        "unwritten_rows_as_drawn": same,
+                        "max_abs_err": (got.float() - want.float()).abs()
+                        .max().item() if got.numel() else 0.0}
+        if on_card:
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out["cache_readings"] = reads
+    del caches, params
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 def shard_worker(rank: int, port: int, out_dir: str,
@@ -4957,6 +5300,10 @@ def shard_worker(rank: int, port: int, out_dir: str,
             # what has run so far, should a later family fail
             (Path(out_dir) / f"shard_rank{rank}.partial.json").write_text(
                 json.dumps({**rec, "sections_s": sections}))
+        # ---- (f) zamba2-2.7b over the long_500k window, its caches split
+        # over data
+        rec["seq_decode"] = shard_seq_decode(rank, mesh, pctx, dev)
+        lap("seq_decode")
         rec["sections_s"] = sections
         (Path(out_dir) / f"shard_rank{rank}.json").write_text(
             json.dumps(rec))
@@ -5089,6 +5436,18 @@ def shard_phase(smi: str) -> dict:
                          "bf16": SHARD_BF16_TOL, "ssd_scan": SSD_TC_TIGHT,
                          "flash_decode": FD_TOL_TEXT},
           "card": smi})
+    bad += shard_seq_decode_gates(ranks)
+    sq0 = r0["seq_decode"]
+    emit({"phase": "shard_seq_decode", **{k: sq0[k] for k in (
+        "arch", "cut", "window", "pos", "steps", "bf16_noise")},
+          "ranks": {r["rank"]: {k: v for k, v in r["seq_decode"].items()
+                                if k not in ("arch", "cut", "window", "pos",
+                                             "steps", "bf16_noise")}
+                    for r in ranks},
+          "section_s_rank0": r0["sections_s"]["seq_decode"],
+          "tolerances": {"bf16": SHARD_BF16_TOL,
+                         "flash_decode": FD_TOL_TEXT},
+          "card": smi})
     if bad:
         raise AssertionError("shard: " + "; ".join(bad))
     steps = len(r0["steps"])
@@ -5109,11 +5468,15 @@ def shard_phase(smi: str) -> dict:
                        "reckoned": {r["rank"]: r["dryrun"] for r in ranks}},
             "combine": {
                 "path": "shard (rank 0): TP sums, ZeRO reduce-scatters, "
-                        "sync, norm, loss; every family's step and decode",
+                        "sync, norm, loss; every family's step and decode; "
+                        "(f)'s merges over data",
                 "launches": sum(s["combine_launches"] for s in r0["steps"])
-                + sum(r0["seq_shard"]["combine_launches"]) + fam_combine,
+                + sum(r0["seq_shard"]["combine_launches"]) + fam_combine
+                + sq0["combine_launches"],
                 "launches_per_step": want, "steps": steps,
                 "moe_layer_fwd_bwd": m0["combine_launches"],
+                "seq_decode_per_decode_step": sq0["combine_launches"]
+                / sq0["steps"],
                 "families": {k: {"train_step": (f.get("train") or {}).get(
                     "combine_launches"), "prefill": f["decode"][
                     "prefill_combine_launches"], "per_decode_step": f[
@@ -5121,12 +5484,20 @@ def shard_phase(smi: str) -> dict:
                     for k, f in by_fam.items()}},
             "flash_decode": {
                 "path": "shard decode (rank 0, 2 of 4 KV heads); every "
-                        "family's decode on the rank's heads",
-                "launches": r0["decode"]["flash_decode_launches"] + fam_fd,
+                        "family's decode on the rank's heads; (f) the lse "
+                        "form on the rank's block of zamba2-2.7b's long_500k "
+                        "caches",
+                "launches": r0["decode"]["flash_decode_launches"] + fam_fd
+                + sq0["flash_decode_launches"],
                 "launches_per_decode_step":
                     r0["decode"]["launches_per_decode_step"],
                 "reading": r0["decode"]["cache_check"]["reading"],
                 "max_abs_err": r0["decode"]["cache_check"]["max_abs_err"],
+                "seq_decode": {
+                    "lse_launches_per_decode_step":
+                        sq0["flash_decode_launches"] / sq0["steps"],
+                    "checks": {r["rank"]: r["seq_decode"]["kernel_checks"]
+                               for r in ranks}},
                 "families": {k: {"per_decode_step": f["decode"][
                     "flash_decode_per_decode_step"], "checks": {
                     n: c for n, c in f["kernel_checks"].items()
@@ -5240,6 +5611,62 @@ def shard_family_gates(label: str, fams: list, ranks: list) -> list[str]:
         bad.append(f"(e) {label}: the unsharded decode read "
                    f"{len(fams[0]['unsharded_decode'])} ranks, the step "
                    f"{stepped}")
+    return bad
+
+
+def shard_seq_decode_gates(ranks: list) -> list[str]:
+    """The gates of phase 28 (f) over every rank's record: what failed, as
+    text. Per rank: flash_decode's lse form launched twice a decode_step
+    (the shared block's two uses) and combine as often as the dry run
+    reckons for this rank's cut cell; every step's collective bytes by op
+    the dry run's, but for the weight gathers, which keep_gathered makes
+    once (the first step) where the dry run's one step makes them every
+    use; the merge's bytes on every step; the local K/V block 262,144
+    positions of 16 heads; logits and caches against the unsharded decode
+    (SHARD_BF16_TOL beyond twice the bf16 run's distance from its float32
+    twin); the kernel on the rank's own block, empty rows exact."""
+    from repro_torch.configs import get
+    bad = []
+    for r in ranks:
+        f, who = r["seq_decode"], f"(f) rank {r['rank']}"
+        dry, n = f["dryrun"], f["steps"]
+        kern = dry["kernels"]
+        fd_calls = kern.get("flash_decode_lse", {}).get("calls", 0)
+        if (fd_calls != 2 or "flash_decode" in kern
+                or f["flash_decode_launches"] != n * fd_calls):
+            bad.append(f"{who}: {f['flash_decode_launches']} flash_decode "
+                       f"launches in {n} steps, the dry run {kern}")
+        if f["combine_launches"] != n * kern["combine"]["calls"]:
+            bad.append(f"{who}: {f['combine_launches']} combine launches in "
+                       f"{n} steps, the dry run {kern['combine']}")
+        want = {k: v for k, v in dry["by_op"].items() if k != "weight_gather"}
+        for i, w in enumerate(f["wire_by_step"]):
+            got = {k: v for k, v in w["by_op"].items() if k != "weight_gather"}
+            if (got != want or w["by_op"].get("kv_seq_merge", 0) <= 0
+                    or (w["by_op"].get("weight_gather", 0) > 0) != (i == 0)
+                    or w["bytes"]["all_to_all"] != dry["bytes"]["all_to_all"]
+                    or w["bytes"]["all_reduce"] != dry["bytes"]["all_reduce"]):
+                bad.append(f"{who} step {i}: collective bytes {w}, the dry "
+                           f"run's {dry['by_op']}")
+        if f["local_caches"]["attn.k"][2:4] != [
+                SEQ_DECODE["window"] // SHARD["mesh"][1],
+                get(SEQ_DECODE["arch"]).n_kv_heads // SHARD["mesh"][2]]:
+            bad.append(f"{who}: local caches {f['local_caches']}")
+        if not f["finite"] or f["logits_reading"] > 1 or max(
+                c["reading"] for c in f["cache_readings"].values()) > 1:
+            bad.append(f"{who} against the unsharded decode: logits "
+                       f"{f['logits_reading']}, caches "
+                       f"{f['cache_readings']}")
+        for c in f["kernel_checks"]:
+            if "out_reading" in c and not (
+                    c["out_reading"] <= 1 and c["lse_reading"] <= 1
+                    and c["empty_rows_exact"]):
+                bad.append(f"{who} flash_decode lse form: {c}")
+    lens = {c["lengths"][0] for r in ranks
+            for c in r["seq_decode"]["kernel_checks"]}
+    if 0 not in lens or SEQ_DECODE["window"] // SHARD["mesh"][1] not in lens:
+        bad.append(f"(f) the kernel checks' lengths {sorted(lens)} miss the "
+                   "empty or the full block")
     return bad
 
 
@@ -6380,6 +6807,14 @@ def main() -> int:
                                      bf16_peak, full)
                      for name, (shape, n_sets, full)
                      in FD_MODEL_TIMING.items()}
+    # the lse form: its float32 output against the plain version's rounded
+    # to bf16 (FD_TOL of bf16); its bound counts that output and the lse
+    lse_timing = fd_timing(
+        "seq_block", *FD_LSE_TIMING,
+        lambda q, k, v, n: decode_attn(q, k, v, n, lse=True)[0],
+        lambda q, k, v, n: decode_attention_ref(q, k, v, n, lse=True)[0]
+        .to(q.dtype), functools.partial(hbm_bytes, lse=True), hbm,
+        bf16_peak, True, make_case_on_card)
     planted = {}
     for name, (shape, _) in FD_TIMING.items():
         B, H, K, dk, dv, S = (shape[x] for x in ("B", "H", "K", "dk", "dv",
@@ -6392,7 +6827,8 @@ def main() -> int:
     bps = fd._blocks_per_sm(0, 1, sv["dk"], sv["dv"], sv["B"])
     emit({"phase": "kernels", "checks": results, "tol": FD_TOL_TEXT,
           "graph_replay": graph, "timings": timings,
-          "model_timings": model_timings, "planted_faults": planted,
+          "model_timings": model_timings, "lse_timing": lse_timing,
+          "planted_faults": planted,
           "schedule": {"span": fd.SPAN, "row_tile": fd.ROW_TILE,
                        "blocks_per_sm": bps,
                        "grid_ctas": fd.grid_ctas(
@@ -6779,7 +7215,11 @@ def main() -> int:
             "share_of_bound")} for name in model_timings},
         "long": {x: timings["long"][x] for x in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
-            "library_ms", "share_of_bound")}}, {
+            "library_ms", "share_of_bound")},
+        "lse_seq_block": {x: lse_timing[x] for x in (
+            "shape", "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
+            "bound_bytes", "library_ms", "share_of_bound",
+            "check_reading")}}, {
         "name": "allreduce_combine", "route": "cuda", "source": COMBINE_SRC,
         "replaces": COMBINE_TPU_SRC,
         "launches": dp_launches + shard["combine"]["launches"],

@@ -60,6 +60,16 @@
 //   load) hit 8 different bank groups whatever the head dim (d = 80 in bf16
 //   is 10 vectors: not a power of two).
 //
+// * The log-sum-exp form (kernel.flash_decode(..., lse=True)): the CTA that
+//   writes a unit's output (the one whose range holds it whole, or the one
+//   that merges its partials) also writes each row's natural log-sum-exp of
+//   the scaled scores, (M + log2 L) ln 2, to an f32 (B, H) array, and the
+//   output in f32, so that a merge of several blocks of one sequence (a
+//   cache split over ranks) rounds once. A row of length 0 then gives
+//   out = 0 and lse = -inf: its one span is all masked, so M stays -inf, L
+//   and the accumulator 0, and no NaN arises. Nothing else changes: without
+//   it the same arithmetic writes the same bits.
+//
 // The C entry point allocates nothing (the caller passes the output, the f32
 // scratch and the zeroed tickets), launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError().
@@ -81,6 +91,7 @@ constexpr int kPW = kSpan / kWarps;   // positions per warp per stage
 constexpr int kLP = 32 / kPW;         // f32: lanes that share one score
 constexpr int kSmemBudget = 200 * 1024;  // the rest of 227 KB: lengths
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLn2 = 0.69314718055994531f;
 constexpr int kMaxDevices = 64;
 static_assert(kPW == 8, "a warp's positions are one mma n-tile");
 
@@ -274,6 +285,7 @@ struct Args {
   void* out;
   float* part;      // (2 * C, kRowTile, DV + 2) f32: acc, then m, then l
   int* tickets;     // (B * K * row_tiles,) int32, zero at rest
+  float* lse;       // (B, H) f32 (the lse form: out in f32), or null
   int B, H, S, K, rep, row_tiles;
   long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale_log2;   // dk^-0.5 * log2(e)
@@ -286,6 +298,23 @@ struct Merge {
   int cf, cl, nrows;    // its CTAs; its rows
   int unit;             // its ticket: b * units + u
 };
+
+// Output row `row`'s four values from column d, times inv: in T, or in f32
+// for the lse form.
+template <typename T, int DV>
+__device__ __forceinline__ void store_out(const Args& a, long long row, int d,
+                                          float4 x, float inv) {
+  if (a.lse != nullptr)
+    store4(static_cast<float*>(a.out) + row * DV + d, x, inv);
+  else
+    store4(static_cast<T*>(a.out) + row * DV + d, x, inv);
+}
+
+// A row's natural log-sum-exp from its max M (log2 units: the scores times
+// log2(e)) and its sum L of 2^(x - M); -inf for a row with no live position.
+__device__ __forceinline__ float lse_of(float M, float L) {
+  return L > 0.f ? (M + log2f(L)) * kLn2 : -INFINITY;
+}
 
 // Start the copies of span cur into a ring stage (K and V rows, and the
 // unit's q rows when a segment starts there).
@@ -433,10 +462,11 @@ __device__ void merge_partials(const Args& a, const Split& sp, const Merge& w,
     const int idx = tid + e * kThreads;
     if (idx < nrows * DV / 4) {
       const int r = idx / (DV / 4), d = 4 * (idx % (DV / 4));
-      store4(static_cast<T*>(a.out) + (w.orow + r) * DV + d, A[e],
-             1.f / fmaxf(Ls[r], 1e-30f));
+      store_out<T, DV>(a, w.orow + r, d, A[e], 1.f / fmaxf(Ls[r], 1e-30f));
     }
   }
+  if (a.lse != nullptr && tid < nrows)   // Ms, Ls are final since the pass
+    a.lse[w.orow + tid] = lse_of(Ms[tid], Ls[tid]);
 }
 
 template <typename T, int DK, int DV>
@@ -761,8 +791,8 @@ fd_decode_kernel(const Args a) {
           A.w = fmaf(x.w, wv, A.w);
         }
         if (whole) {
-          store4(static_cast<T*>(a.out) + (orow + r) * DV + d, A,
-                 1.f / fmaxf(Lsum, 1e-30f));
+          store_out<T, DV>(a, orow + r, d, A, 1.f / fmaxf(Lsum, 1e-30f));
+          if (a.lse != nullptr && d == 0) a.lse[orow + r] = lse_of(M, Lsum);
         } else {
           *reinterpret_cast<float4*>(mine + r * DV + d) = A;
           if (d == 0) {
@@ -853,23 +883,25 @@ template <> constexpr int dtype_code<__nv_bfloat16>() { return 1; }
   X(__nv_bfloat16, 64, 128) X(__nv_bfloat16, 80, 80)
 
 // dtype: 0 = float32, 1 = bfloat16; (dk, dv) as in FD_INSTANCES. q (B,H,dk)
-// and out (B,H,dv) are contiguous; k/v strides are in elements (batch,
-// position, kv head) with the head dim contiguous; lengths is (B,) int32;
-// part is (2 * n_ctas, 8, dv + 2) f32; tickets is (B * K * row_tiles,)
-// int32, all zero. n_ctas is the grid (kernel.grid_ctas).
+// and out (B,H,dv) are contiguous; lse is a contiguous (B,H) f32 array, and
+// out then in float32, or null, and out in q's dtype; k/v strides are in
+// elements (batch, position, kv head) with the head dim contiguous; lengths
+// is (B,) int32; part is (2 * n_ctas, 8, dv + 2) f32; tickets is (B * K *
+// row_tiles,) int32, all zero. n_ctas is the grid (kernel.grid_ctas).
 extern "C" int fd_launch(int device, int dtype, int dk, int dv, const void* q,
                          const void* k, const void* v, const void* lengths,
-                         void* out, void* part, void* tickets, int B, int H,
-                         int S, int K, long long k_sb, long long k_ss,
-                         long long k_sh, long long v_sb, long long v_ss,
-                         long long v_sh, int n_ctas, float scale_log2,
-                         void* stream) {
+                         void* out, void* part, void* tickets, void* lse,
+                         int B, int H, int S, int K, long long k_sb,
+                         long long k_ss, long long k_sh, long long v_sb,
+                         long long v_ss, long long v_sh, int n_ctas,
+                         float scale_log2, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int rep = H / K;
   Args a{q, k, v, static_cast<const int*>(lengths), out,
-         static_cast<float*>(part), static_cast<int*>(tickets), B, H, S, K,
-         rep, (rep + kRowTile - 1) / kRowTile, k_sb, k_ss, k_sh, v_sb, v_ss,
+         static_cast<float*>(part), static_cast<int*>(tickets),
+         static_cast<float*>(lse), B, H, S, K, rep,
+         (rep + kRowTile - 1) / kRowTile, k_sb, k_ss, k_sh, v_sb, v_ss,
          v_sh, scale_log2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FD_CASE(T, DK_, DV_)                                                  \

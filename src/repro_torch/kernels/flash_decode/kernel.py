@@ -48,7 +48,7 @@ _retired: list[torch.Tensor] = []
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode", SOURCES)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fd_launch.argtypes = ([i32] * 4 + [vp] * 7 + [i32] * 4 + [i64] * 6
+    lib.fd_launch.argtypes = ([i32] * 4 + [vp] * 8 + [i32] * 4 + [i64] * 6
                               + [i32, ctypes.c_float, vp])
     lib.fd_launch.restype = i32
     lib.fd_blocks_per_sm.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
@@ -188,10 +188,16 @@ def _buffers(dev: torch.device, stream: int, n_tickets: int,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor, *, lse: bool = False):
     """q: (B,H,dk); k: (B,S,K,dk); v: (B,S,K,dv); lengths: (B,) int32 with
     values in [1, S]. Returns (B,H,dv) in q's dtype; positions ``>=
     lengths[b]`` of row b are neither read nor attended to.
+
+    With ``lse``: lengths in [0, S], and returns ``(out, lse)``, ``out``
+    (B,H,dv) in float32 and ``lse`` (B,H) float32, each row's natural
+    log-sum-exp of its scaled scores; a row of length 0 gives ``out`` 0 and
+    ``lse`` -inf. The same launch: the CTA that writes a row's output
+    writes its ``lse``.
 
     CUDA tensors only; raises on anything the kernel does not take. Never
     reads ``lengths`` to the host, so it can be captured in a CUDA graph."""
@@ -229,15 +235,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     tickets, part = _buffers(dev, stream, B * K * row_tiles(rep),
                              2 * n_ctas * ROW_TILE * (dv + 2))
-    out = torch.empty((B, H, dv), dtype=q.dtype, device=dev)
+    out = torch.empty((B, H, dv), dtype=torch.float32 if lse else q.dtype,
+                      device=dev)
+    lse_out = (torch.empty((B, H), dtype=torch.float32, device=dev)
+               if lse else None)
     lib = _lib()
     err = lib.fd_launch(
         dev.index, code, dk, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-        tickets.data_ptr(), B, H, S, K, *k.stride()[:3], *v.stride()[:3],
-        n_ctas, dk ** -0.5 * math.log2(math.e), stream)
+        tickets.data_ptr(), None if lse_out is None else lse_out.data_ptr(),
+        B, H, S, K, *k.stride()[:3], *v.stride()[:3], n_ctas,
+        dk ** -0.5 * math.log2(math.e), stream)
     if err:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err} "
                            f"({lib.fd_error_string(err).decode()})")
     launches += 1
-    return out
+    return (out, lse_out) if lse else out

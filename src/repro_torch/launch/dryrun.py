@@ -235,6 +235,9 @@ def lower_cell(arch, shape_name, multi_pod: bool,
     seq = bool(flags.get("seq_shard", False))
     if pctx is not None:
         pctx = dataclasses.replace(pctx, seq_shard=seq)
+        if shape.kind == "decode":     # the caches' layout (kv_seq_axis)
+            pctx = dataclasses.replace(pctx, decode_shape=(
+                shape.global_batch, shape.seq_len))
 
     def params_and_specs():
         params = model.init(None, device=META)

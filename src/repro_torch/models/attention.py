@@ -26,6 +26,16 @@ attention runs on this rank's heads: GQA's self-attention, whisper's
 cross-attention (its K/V from the replicated encoder output) and MLA,
 whose absorbed decode keeps the latent split over ``model`` as
 ``cache_specs`` lays it out.
+
+Where ``cache_specs`` splits a decode cache's sequence over ``data`` (a
+batch that does not divide the batch axes: the reference's ``long_500k``,
+batch 1; :meth:`ParallelCtx.kv_seq_block` reads the rule from the
+context's ``decode_shape``), the rank whose block holds ``pos`` writes the
+new K/V (or latent and rope key), every rank attends its block (GQA
+through ``decode_attn``'s log-sum-exp form, MLA by its float32 scores),
+and :func:`~repro_torch.parallel.tensor_parallel.merge_softmax` merges the
+parts over ``data``: what the reference's GSPMD computes from the same
+layout.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from repro_torch.parallel.sharding import Sharding
 from repro_torch.core.collectives import tagged
 from repro_torch.parallel.tensor_parallel import (copy_to_model, gather_leaf,
                                                   gather_over_model,
+                                                  merge_softmax,
                                                   sum_over_model)
 
 
@@ -222,16 +233,46 @@ def gqa_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions) -> tuple:
     return q, k, v
 
 
-def _write_kv(cache: torch.Tensor, pos_b: torch.Tensor,
-              new: torch.Tensor) -> None:
-    """cache[b, pos_b[b]] = new[b] in place, dropping rows with pos_b >= S
-    (the reference's ``.at[rows, pos].set`` drops out-of-range writes);
-    cache (B, S, *F), new (B, *F)."""
+def _seq_block(pctx, S: int) -> tuple[int, object] | None:
+    """(first global position, ``data`` group) of this rank's block of a
+    decode cache of ``S`` local positions whose sequence is split over
+    ``data``; None where the rank holds all of it."""
+    blk = None if pctx is None else pctx.kv_seq_block(S)
+    if blk is None:
+        return None
+    return blk[0], pctx.mesh.group(blk[1])
+
+
+def _write_kv(cache: torch.Tensor, pos_b: torch.Tensor, new: torch.Tensor,
+              start: int = 0) -> None:
+    """cache[b, pos_b[b] - start] = new[b] in place, dropping rows whose
+    position lies outside the block ``[start, start + S)`` the cache holds
+    (the reference's ``.at[rows, pos].set`` drops out-of-range writes; a
+    block of a cache split over ``data`` starts at ``start``); cache (B, S,
+    *F), new (B, *F)."""
     S = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
-    idx = pos_b.clamp(max=S - 1)
-    keep = (pos_b < S).view((-1,) + (1,) * (new.dim() - 1))
+    at = pos_b - start
+    idx = at.clamp(0, S - 1)
+    keep = ((at >= 0) & (at < S)).view((-1,) + (1,) * (new.dim() - 1))
     cache[rows, idx] = torch.where(keep, new.to(cache.dtype), cache[rows, idx])
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos_b,
+            seq) -> torch.Tensor:
+    """One token's attention (q (B, H, dk)) to positions ``<= pos_b`` of
+    the caches k, v (B, S, ., .), in q's dtype: through ``decode_attn``;
+    where ``seq`` (:func:`_seq_block`) says the caches are a block of a
+    sequence split over ``data``, the block's positions through its
+    log-sum-exp form and the parts merged over ``data``."""
+    S = k.shape[1]
+    start = 0 if seq is None else seq[0]
+    length = (pos_b + 1 - start).clamp(0, S).to(torch.int32)
+    if seq is None:
+        return decode_attn(q, k.contiguous(), v.contiguous(), length)
+    out, lse = decode_attn(q, k.contiguous(), v.contiguous(), length,
+                           lse=True)
+    return merge_softmax(out, lse, seq[1]).to(q.dtype)
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
@@ -242,17 +283,23 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     tensor parallelism the cache holds this rank's KV heads (as prefill
     left it) and the kernel runs on them; where ``cache_specs`` splits the
     head dim instead, the cache is gathered over ``model`` for the kernel.
-    ``specs``: the layer's attention specs, on a sharded context."""
+    Where the context's ``decode_shape`` splits the cache's sequence over
+    ``data``, the cache is this rank's block of positions: the new KV is
+    written on the rank that holds ``pos`` and the softmax merged over
+    ``data`` (the module's docstring). ``specs``: the layer's attention
+    specs, on a sharded context."""
     B = x.shape[0]
     pos_b = _pos_vec(pos, B, x.device)
     k, v = cache["k"], cache["v"]
+    seq = _seq_block(pctx, k.shape[1])
+    start = 0 if seq is None else seq[0]
     first = 0
     if gqa_tp(cfg, pctx):
         q, k_new, v_new = _gqa_tp_qkv(p, x, cfg, pos_b[:, None], pctx,
                                       specs)
         first = _model_block(_padded_heads(cfg), pctx).start
-        _write_kv(k, pos_b, k_new[:, 0])
-        _write_kv(v, pos_b, v_new[:, 0])
+        _write_kv(k, pos_b, k_new[:, 0], start)
+        _write_kv(v, pos_b, v_new[:, 0], start)
         ka, va = k, v
     elif tp_active(pctx):
         # replicated attention over a cache cut as prefill cut it
@@ -264,8 +311,8 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
             k_new = _repeat_kv(k_new, q.shape[2])
             v_new = _repeat_kv(v_new, q.shape[2])
         k_blk = _cache_block(k_new, pctx)
-        _write_kv(k, pos_b, k_blk[:, 0])
-        _write_kv(v, pos_b, _cache_block(v_new, pctx)[:, 0])
+        _write_kv(k, pos_b, k_blk[:, 0], start)
+        _write_kv(v, pos_b, _cache_block(v_new, pctx)[:, 0], start)
         ka, va = k, v
         cut = [d for d in (2, 3) if k_blk.shape[d] != k_new.shape[d]]
         if cut:
@@ -276,15 +323,13 @@ def gqa_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
                 ka, va = (gather_dims(t, sh, cut) for t in (k, v))
     else:
         q, k_new, v_new = gqa_qkv(p, x, cfg, pos_b[:, None])
-        _write_kv(k, pos_b, k_new[:, 0])
-        _write_kv(v, pos_b, v_new[:, 0])
+        _write_kv(k, pos_b, k_new[:, 0], start)
+        _write_kv(v, pos_b, v_new[:, 0], start)
         ka, va = k, v
         Hp, K = q.shape[2], k.shape[2]
         if Hp % K != 0:
             ka, va = _repeat_kv(k, Hp), _repeat_kv(v, Hp)
-    S = k.shape[1]
-    length = (pos_b + 1).clamp(max=S).to(torch.int32)
-    out = decode_attn(q[:, 0], ka.contiguous(), va.contiguous(), length)
+    out = _attend(q[:, 0], ka, va, pos_b, seq)
     out = _head_mask(cfg, out[:, None], first)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if gqa_tp(cfg, pctx):
@@ -658,8 +703,12 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     the softmax runs on them whole, ``o_c`` on the rank's ``r`` block is
     gathered over ``model`` and cut to the rank's heads, and ``w_uv`` and
     the row-split ``wo`` end in a sum over ``model``. The cache is never
-    gathered. ``specs``: the layer's attention specs (read where the heads
-    do not split and the leaves are gathered whole)."""
+    gathered. Where the context's ``decode_shape`` splits the cache's
+    sequence over ``data``, each rank scores its block, and its softmax
+    part (``o_c`` and the scores' log-sum-exp) is merged over ``data``
+    before ``o_c`` is gathered over ``model``. ``specs``: the layer's
+    attention specs (read where the heads do not split and the leaves are
+    gathered whole)."""
     m = cfg.mla
     tp, heads = tp_active(pctx), mla_tp(cfg, pctx)
     if tp and not heads:
@@ -677,8 +726,10 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
         c_new = c_new[..., _model_block(m.kv_lora_rank, pctx)]
     if m_cut:
         kr_new = kr_new[..., _model_block(m.qk_rope_head_dim, pctx)]
-    _write_kv(c_kv, pos_b, c_new)
-    _write_kv(k_rope, pos_b, kr_new)
+    seq = _seq_block(pctx, c_kv.shape[1])
+    start = 0 if seq is None else seq[0]
+    _write_kv(c_kv, pos_b, c_new, start)
+    _write_kv(k_rope, pos_b, kr_new, start)
     w_uk = p["wkv_b"][..., :m.qk_nope_head_dim]            # (r,H,nope)
     w_uv = p["wkv_b"][..., m.qk_nope_head_dim:]            # (r,H,v)
     c32 = c_kv.float()
@@ -698,11 +749,21 @@ def mla_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
         s = ((sum_over_model(s_c, pctx) if r_cut else s_c)
              + (sum_over_model(s_r, pctx) if m_cut else s_r))
     s = s * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    mask = (torch.arange(c_kv.shape[1], device=x.device)[None, :]
+    mask = (start + torch.arange(c_kv.shape[1], device=x.device)[None, :]
             <= pos_b[:, None])
-    s = torch.where(mask[:, None, :], s, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    o_c = torch.einsum("bhk,bkr->bhr", pr, c32)
+    if seq is None:
+        s = torch.where(mask[:, None, :], s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        o_c = torch.einsum("bhk,bkr->bhr", pr, c32)
+    else:
+        # this block's softmax part (0, and lse -inf, where it holds no
+        # position <= pos), merged over data
+        s = torch.where(mask[:, None, :], s, -torch.inf)
+        lse = torch.logsumexp(s, dim=-1)
+        pr = torch.exp(s - torch.where(torch.isneginf(lse), 0.0,
+                                       lse)[..., None])
+        o_c = merge_softmax(torch.einsum("bhk,bkr->bhr", pr, c32), lse,
+                            seq[1])
     if r_cut:
         o_c = gather_over_model(o_c, -1, pctx)
     if heads:

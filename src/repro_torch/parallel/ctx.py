@@ -23,6 +23,16 @@ computes what it computes without it (:meth:`ParallelCtx.seq_split` says
 when it applies; :mod:`repro_torch.models.transformer` applies it). Off by
 default, as in the reference; its one user there is the dry run's
 ``extra_flags`` (:mod:`repro_torch.launch.dryrun`).
+
+``decode_shape`` is the (global batch, window) of the decode caches a
+context steps. Where the batch does not divide the batch axes (the
+reference's ``long_500k``, batch 1), ``cache_specs`` splits the caches'
+sequence over ``data`` (:meth:`ParallelCtx.kv_seq_axis`), and the decode
+paths read the same rule from this field: each rank attends its block and
+the softmax is merged over ``data``
+(:func:`repro_torch.parallel.tensor_parallel.merge_softmax`). None (the
+default): the caches lie whole along their sequence, as for every batch
+that divides.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ class ParallelCtx:
     tp_axis: str = "model"                 # tensor/expert-parallel axis
     #: Megatron-style sequence parallelism of the residual stream
     seq_shard: bool = False
+    #: (global batch, window) of the decode caches this context steps
+    decode_shape: tuple[int, int] | None = None
 
     @property
     def dp_size(self) -> int:
@@ -66,6 +78,35 @@ class ParallelCtx:
         tp = self.tp_size
         return (self.seq_shard and self.sharded and tp > 1 and seq_len > 1
                 and seq_len % tp == 0)
+
+    def kv_seq_axis(self, batch: int, seq_len: int) -> str | None:
+        """The axis a decode cache's sequence of ``seq_len`` positions is
+        split over at a global batch of ``batch`` rows: ``"data"`` where the
+        batch does not divide the batch axes and the sequence does (the
+        reference's ``cache_specs`` rule), else None. The rank at ``data``
+        coordinate d then holds positions ``[d S/n, (d+1) S/n)``; ranks on
+        other ``pod`` coordinates hold the same blocks."""
+        n = self.dp_size
+        if batch % n and not seq_len % n:
+            return "data"
+        return None
+
+    def kv_seq_block(self, seq_len: int) -> tuple[int, str] | None:
+        """(first global position, axis) of this rank's block of a decode
+        cache of ``seq_len`` local positions, where :attr:`decode_shape`
+        puts the caches' sequence over an axis; None where they lie
+        whole."""
+        if self.decode_shape is None:
+            return None
+        axis = self.kv_seq_axis(*self.decode_shape)
+        if axis is None:
+            return None
+        n = self.mesh.shape[axis]
+        if seq_len * n != self.decode_shape[1]:
+            raise ValueError(f"a cache block of {seq_len} positions is not "
+                             f"1/{n} of the decode window "
+                             f"{self.decode_shape[1]}")
+        return self.mesh.coords[axis] * seq_len, axis
 
 
 def make_parallel_ctx(mesh) -> ParallelCtx:

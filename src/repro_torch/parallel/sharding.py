@@ -236,7 +236,7 @@ def cache_specs(cache, cfg: ArchConfig, shape: ShapeConfig, pctx):
     B, S = shape.global_batch, shape.seq_len
     batch_sharded = _div(B, pctx.dp_size)
     b_ax = dp if batch_sharded else None
-    seq_ax = "data" if (not batch_sharded and _div(S, pctx.dp_size)) else None
+    seq_ax = pctx.kv_seq_axis(B, S)
 
     def spec_for(names, s):
         name = names[-1] if names else ""

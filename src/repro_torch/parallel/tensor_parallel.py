@@ -28,6 +28,9 @@ reference's specs are written out here, in the style of
   needs a sum, and the block's values and gradients are its unsharded ones
   bit for bit.
 
+:func:`merge_softmax` merges the softmax of a decode whose cache's sequence
+is split over ``data`` from each rank's part over its block.
+
 Every sum is an all-gather of the parts plus ``combine`` over them in rank
 order (:func:`repro_torch.kernels.allreduce_combine.ops.combine_parts`:
 the Hopper kernel on CUDA tensors, its plain version on the CPU), or the
@@ -54,6 +57,27 @@ def sum_across(x: torch.Tensor, group) -> torch.Tensor:
     parts = all_gather_stack(x, group)
     return combine_parts(parts.reshape(parts.shape[0], -1),
                          op="sum").reshape(x.shape)
+
+
+def merge_softmax(out: torch.Tensor, lse: torch.Tensor,
+                  group) -> torch.Tensor:
+    """Softmax attention over a sequence whose blocks lie on the ranks of
+    ``group``, from each rank's part over its block: ``out`` (..., d)
+    float32, normalised over the rank's positions, and ``lse`` (...) their
+    log-sum-exp (-inf where the rank has none). The largest ``lse`` M by
+    ``combine`` (max) over the gathered ``lse``, each rank's weight w =
+    exp(lse - M), then ``combine`` (sum) over the gathered ``[w out, w]``
+    (one tensor) in group-rank order, and the quotient: float32, the same
+    bits on every rank. Not differentiable (a decode step's)."""
+    with tagged("kv_seq_merge"):
+        parts = all_gather_stack(lse.contiguous(), group)
+        m = combine_parts(parts.reshape(parts.shape[0], -1),
+                          op="max").reshape(lse.shape)
+        w = torch.where(torch.isneginf(lse), 0.0, torch.exp(lse - m))
+        tot = sum_across(torch.cat([(out * w[..., None]).reshape(-1),
+                                    w.reshape(-1)]), group)
+    num, den = tot.split([out.numel(), w.numel()])
+    return num.reshape(out.shape) / den.reshape(w.shape)[..., None]
 
 
 class CopyToModel(torch.autograd.Function):

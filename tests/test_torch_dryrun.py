@@ -424,3 +424,90 @@ def test_counting_counts_the_real_transport_as_the_dry_groups():
         assert counts[0]["by_op"] == {"t": 360}
     finally:
         dist.destroy_process_group()
+
+
+SEQ_WORKER = r"""
+import dataclasses, datetime, json, sys
+import torch
+import torch.distributed as dist
+from repro_torch import tree as tree_util
+from repro_torch.config import ShapeConfig, reduced
+from repro_torch.configs import get
+from repro_torch.core import collectives
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import build_model
+from repro_torch.parallel.ctx import make_parallel_ctx
+from repro_torch.parallel.sharding import (cache_specs, param_specs,
+                                           shard_tree)
+
+rank, port, out, S = int(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[4])
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=8, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+pctx = dataclasses.replace(make_parallel_ctx(mesh), decode_shape=(1, S))
+cfg = reduced(get("zamba2-2.7b"), head_dim=64, dtype="float32")
+model = build_model(cfg)
+full = model.init(torch.Generator().manual_seed(0), device="cpu")
+params = shard_tree(full, param_specs(full, cfg, pctx), mesh)
+whole = model.init_cache(1, S, device="cpu")
+caches = shard_tree(whole, cache_specs(
+    whole, cfg, ShapeConfig("long", S, 1, "decode"), pctx), mesh)
+with torch.no_grad(), collectives.counting() as wire:
+    lg, _ = model.decode_step(params, caches, {
+        "token": torch.tensor([3]), "pos": torch.tensor(S // 2 + 5)}, pctx)
+json.dump({"wire": wire, "local_k": list(caches["attn"]["k"].shape),
+           "finite": bool(torch.isfinite(lg).all())},
+          open(f"{out}/r{rank}.json", "w"))
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def test_seq_split_decode_merge_bytes_equal_the_gloo_run(tmp_path):
+    """The reduced zamba2 (head dim 64, float32) decoding one token at
+    batch 1 over a window of 128 positions on (2, 2, 2), the cell's caches
+    split over ``data`` by position (``kv_seq_axis``): the dry run's
+    reckoning of each rank's collective bytes (the merge's ``kv_seq_merge``
+    all-gathers of the lse and of ``[w out, w]`` included) equals what
+    eight gloo processes count on each rank in the same decode step."""
+    import socket
+    S = 128
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", SEQ_WORKER, str(r),
+                               port, str(tmp_path), str(S)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(8)]
+    cfg = reduced(get("zamba2-2.7b"), head_dim=64, dtype="float32")
+    shape = ShapeConfig("long", S, 1, "decode")
+    reckoned = []
+    try:
+        for r in range(8):
+            cell, meta = dryrun.lower_cell(cfg, shape, False,
+                                           mesh_shape=(2, 2, 2), rank=r)
+            reckoned.append(dryrun.analyze(cell, meta))
+        logs = [p.communicate(timeout=120) + (p.returncode,) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for so, se, rc in logs:
+        assert rc == 0, f"STDOUT:\n{so}\nSTDERR:\n{se}"
+    # one merge a shared-attention call: the lse (B=1, 2 heads a model
+    # rank) and [w out, w] (2 x 64 + 2 floats) gathered from 2 data ranks
+    per_call = 2 * 2 * 4 + 2 * (2 * 64 + 2) * 4
+    for r, want in enumerate(reckoned):
+        got = json.loads((tmp_path / f"r{r}.json").read_text())
+        assert got["finite"] and got["local_k"][2] == S // 2
+        coll = want["collective_bytes"]
+        assert got["wire"]["by_op"] == coll["by_op"], r
+        assert got["wire"]["bytes"] == {k: coll[k] for k in
+                                        collectives.KINDS}, r
+        assert coll["by_op"]["kv_seq_merge"] == 2 * per_call
+        assert want["kernels"]["flash_decode_lse"]["calls"] == 2
+        assert "flash_decode" not in want["kernels"]

@@ -13,11 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels.flash_decode.kernel import flash_decode as jax_flash_decode
 from repro.kernels.flash_decode.ref import decode_attention_ref as jax_ref
 from repro.models.attention import decode_attention as jax_decode_attention
 from repro_torch.kernels import _build
+from repro_torch.kernels.allreduce_combine.ops import combine_parts
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.flash_decode import ops
 from repro_torch.models.attention import decode_attention
@@ -108,6 +110,88 @@ def test_per_row_lengths_match_model_decode_attention(dtype):
                                atol=tol)
 
 
+def _merge_blocks(outs, lses):
+    """The merge over ``data`` of a sequence split into blocks, as
+    ``tensor_parallel.merge_softmax`` does it across ranks: the largest
+    lse by ``combine`` (max), each block's weight exp(lse - M) (0 for an
+    empty block), ``combine`` (sum) of ``[w out, w]`` in block order, the
+    quotient."""
+    lse = torch.stack(lses)
+    m = combine_parts(lse.reshape(len(lses), -1), op="max").reshape(
+        lse.shape[1:])
+    packed = []
+    for o, l in zip(outs, lses):
+        w = torch.where(torch.isneginf(l), 0.0, torch.exp(l - m))
+        packed.append(torch.cat([(o * w[..., None]).reshape(-1),
+                                 w.reshape(-1)]))
+    tot = combine_parts(torch.stack(packed), op="sum")
+    num, den = tot.split([outs[0].numel(), lses[0].numel()])
+    return num.reshape(outs[0].shape) / den.reshape(lses[0].shape)[..., None]
+
+
+@settings(max_examples=30, deadline=None)
+@given(n_blocks=st.sampled_from([1, 2, 3, 4, 8]),
+       block=st.integers(1, 24), B=st.integers(1, 3),
+       shape=st.sampled_from([(4, 2, 8, 8), (8, 8, 16, 8), (6, 2, 8, 16)]),
+       data=st.data())
+def test_lse_blocks_merge_to_the_whole_cache(n_blocks, block, B, shape,
+                                             data):
+    """The plain version's log-sum-exp form on each block of a split
+    sequence (each row's block lengths in [0, block]: blocks past a row's
+    length are empty), merged as the split decode merges over ``data``,
+    equals the whole cache's attention at f32 1e-6, and the reference's
+    jax decode attention on the whole cache."""
+    H, K, dk, dv = shape
+    S = n_blocks * block
+    lengths = np.array(data.draw(st.lists(st.integers(1, S), min_size=B,
+                                          max_size=B)), np.int32)
+    q, k, v = _inputs(data.draw(st.integers(0, 2 ** 16)), B, H, K, dk, dv,
+                      S)
+    tq, tk, tv = _torch([q, k, v], "float32")
+    whole = ops.decode_attn(tq, tk, tv, torch.from_numpy(lengths))
+    outs, lses = [], []
+    for j in range(n_blocks):
+        n = torch.from_numpy(np.clip(lengths - j * block, 0, block))
+        cut = slice(j * block, (j + 1) * block)
+        o, l = ops.decode_attn(tq, tk[:, cut], tv[:, cut], n, lse=True)
+        assert o.dtype == l.dtype == torch.float32 and l.shape == (B, H)
+        assert (torch.isneginf(l) == (n == 0)[:, None]).all()
+        outs.append(o)
+        lses.append(l)
+    got = _merge_blocks(outs, lses)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    want = jax_decode_attention(jnp.asarray(q)[:, None], jnp.asarray(k),
+                                jnp.asarray(v), jnp.asarray(lengths - 1))
+    np.testing.assert_allclose(got.numpy(), _f32(want[:, 0]),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lse_form_on_empty_rows_and_its_output_rounded_is_the_plain(dtype):
+    """A row of length 0 gives ``out`` 0 and ``lse`` -inf with no NaN (and
+    the plain form 0 too); a live row's lse is the log-sum-exp of its
+    scaled scores, and its float32 ``out`` rounded to q's dtype is the
+    plain form's output bit for bit."""
+    B, H, K, dk, dv, S = 3, 8, 2, 64, 64, 40
+    q, k, v = _torch(_inputs(9, B, H, K, dk, dv, S), dtype)
+    lengths = torch.tensor([0, 17, S], dtype=torch.int32)
+    out, lse = ops.decode_attn(q, k, v, lengths, lse=True)
+    plain = ops.decode_attn(q, k, v, lengths)
+    assert out.dtype == lse.dtype == torch.float32
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (plain[0] == 0).all() and torch.isneginf(lse[0]).all()
+    assert torch.equal(out.to(plain.dtype), plain)
+    s = torch.einsum("bgrh,bkgh->bgrk", q.float().reshape(B, K, H // K, dk),
+                     k.float()) * dk ** -0.5
+    for b in (1, 2):
+        want = torch.logsumexp(s[b, ..., :int(lengths[b])], -1).reshape(H)
+        np.testing.assert_allclose(lse[b].numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    empty, empty_lse = ops.decode_attn(q, k, v, 0, lse=True)
+    assert (empty == 0).all() and torch.isneginf(empty_lse).all()
+
+
 def test_cpu_dispatch_never_launches_kernel(monkeypatch):
     monkeypatch.setattr(fd_kernel, "launches", 0)
     q, k, v = _torch(_inputs(5, 2, 4, 2, 64, 64, 32), "bfloat16")
@@ -137,6 +221,13 @@ def test_hbm_bytes_counts_live_rows_once():
     # 2 rows of lengths 3 and 5, K=2 heads of dk=dv=64 in bf16, H=4
     got = ops.hbm_bytes([3, 5], heads=4, kv_heads=2, dk=64, dv=64)
     assert got == 8 * 2 * 128 * 2 + 2 * 4 * 128 * 2 + 2 * 4
+
+
+def test_hbm_bytes_of_the_lse_form():
+    # the output in float32 and one f32 lse a row and head
+    got = ops.hbm_bytes([3, 5], heads=4, kv_heads=2, dk=64, dv=64, lse=True)
+    assert got == (8 * 2 * 128 * 2 + 2 * 4 * 64 * 2 + 2 * 4 * (64 + 1) * 4
+                   + 2 * 4)
 
 
 def test_build_names_library_by_source_hash_and_needs_nvcc(tmp_path,

@@ -68,6 +68,44 @@ def test_flash_decode_matches_plain_on_card(shape, dtype, cuda_device):
     _fd_close(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 32, 32, 80, 80, 1000),
+                                   (4, 12, 4, 64, 64, 4096),
+                                   (2, 8, 1, 128, 128, 32768)])
+def test_flash_decode_lse_form_matches_plain_on_card(shape, dtype,
+                                                     cuda_device):
+    """The log-sum-exp form (the blocks of a sequence split over ``data``):
+    ``out`` in float32 and ``lse`` against the plain version's, rows of
+    length 0 included (out 0, lse -inf, no NaN), one launch; the plain
+    form's call on the same inputs unchanged bit for bit by the lse one
+    between them."""
+    B, H, K, dk, dv, S = shape
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               .to(cuda_device, dtype)
+               for s in ((B, H, dk), (B, S, K, dk), (B, S, K, dv)))
+    lengths = rng.integers(0, S + 1, B).astype(np.int32)
+    lengths[0], lengths[-1] = 0, S
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    plain = fd_kernel.flash_decode(q, k, v, lengths.clamp(min=1))
+    before = fd_kernel.launches
+    got, lse = fd_kernel.flash_decode(q, k, v, lengths, lse=True)
+    assert fd_kernel.launches == before + 1
+    again = fd_kernel.flash_decode(q, k, v, lengths.clamp(min=1))
+    want, want_lse = decode_attention_ref(q, k, v, lengths, lse=True)
+    torch.cuda.synchronize()
+    assert got.dtype == lse.dtype == torch.float32
+    assert torch.equal(plain, again)
+    assert torch.isfinite(got).all()
+    assert (got[0] == 0).all() and torch.isneginf(lse[0]).all()
+    assert torch.isfinite(lse[1:]).all()
+    rtol, atol = FD_TOL[dtype]
+    for g, w in ((got, want), (lse[1:], want_lse[1:])):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+
+
 def _fd_case(B, H, K, dk, dv, S, dtype, device, seed):
     """q, k, v; ragged lengths with 1 and S; NaN past each row's length in
     the caches the kernel gets (kp, vp), not in those the reference gets."""
