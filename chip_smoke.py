@@ -456,6 +456,29 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
             exactly, its peak in the band, the seq_shard step bit for bit;
             then full-width cells on the production meshes, one a family
             (DRYRUN_CELLS), one line each with trace_s.
+39. cg      the conjugate-gradient example (repro_torch.examples.cg_solver,
+            the counterpart of the reference's examples/cg_solver.py: the
+            paper's miniFE/HPCG class; CG): (a) one rank, n = 1024 (1.07e9
+            points, 4.29 GB a vector), the eigenvector right-hand side, 120
+            iterations: the error against the analytic solution under the
+            reference's 5e-2, the residual finite,
+            torch.cuda.max_memory_allocated within DRYRUN_BAND of the dry
+            run's counters' peak for the same solve on meta, ms per
+            iteration beside its least bytes (CG_PASSES f32 passes of the
+            grid) at 3.35 TB/s. (b) eight gloo ranks on the card, slabs of
+            a 512^3 grid over data (64 x 512 x 512 a rank, 1 MB faces): the
+            eigenvector b for 120 iterations and a torch.Generator(0) b for
+            5; each rank's x within 1e-4 of max|x| of its rows of the
+            one-rank solve of the same b on the card (the gathered x, slab
+            by slab), combine launched 1 + 2 iters times a rank a solve
+            (every dot product's partials summed by combine), ppermute's
+            bytes 2 (iters + 1) faces a rank, the residual the same on
+            every rank; the kernel against its plain version on the CG's
+            own (8, 1) partials; wall ms of a pdot, a halo exchange and
+            the same exchange of host copies of the faces (gloo alone).
+            (c) the five examples' mains on the card (cg_solver at n = 32,
+            quickstart, allreduce_accel_demo, serve_lm, train_lm --small
+            --steps 12), each ending "OK".
 
 Then one {"kernels": [...]} line, nvidia-smi's name/power line, and last
 {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc; writes the
@@ -466,11 +489,13 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import datetime
 import functools
 import gc
 import hashlib
+import io
 import json
 import math
 import os
@@ -481,6 +506,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -890,6 +916,23 @@ SIM_STUDIES = dict(
     plan_ranks=16, plan=dict(generations=1, survivors=2, children=2,
                              check=1, seed=0),
     tol=1e-9)
+
+#: phase 39, the conjugate-gradient example (repro_torch.examples.
+#: cg_solver, the reference's examples/cg_solver.py): (a) one rank on an
+#: n^3 grid whose five vectors (b, x, r, p, Ap) fill about a quarter of the
+#: card, HPCG's rule for a problem's size, the reference's 120 iterations;
+#: (b) ``ranks`` gloo ranks of the card on slabs of a ``rank_n``^3 grid (64
+#: planes of 512 x 512 a rank, 1 MB faces), the eigenvector right-hand side
+#: for ``iters`` and a torch.Generator(seed) one for ``seeded_iters``, each
+#: held against the one-rank solve of the same b within ``tol`` of its
+#: largest value; ``reps`` calls each of a pdot and a halo exchange timed
+CG = dict(n=1024, iters=120, ranks=8, rank_n=512, seeded_iters=5, seed=0,
+          tol=1e-4, reps=20)
+#: the least bytes of one CG iteration, in f32 passes over the grid: A(p)
+#: reads p and writes Ap; p.Ap reads both; x += alpha p and r -= alpha Ap
+#: read two and write one each; r.r reads r; p = r + beta p reads two and
+#: writes one
+CG_PASSES = 14
 
 T_START = time.perf_counter()
 
@@ -6673,6 +6716,267 @@ def serve_schedule(prompt_lens, new_tokens: int, slots: int,
     return rows, contexts
 
 
+def cg_worker(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 39 (b) (run by torch.multiprocessing, spawn): the
+    CG on its slab of the ``data`` mesh, each solve's combine launches and
+    ppermute bytes counted from 0, its x against the one-rank solve's rows
+    (written by cg_phase), the kernel on the CG's own partials, a pdot and
+    a halo exchange timed."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+    from repro_torch.examples import cg_solver
+    from repro_torch.kernels.allreduce_combine import kernel as ck
+    from repro_torch.kernels.allreduce_combine.ops import combine_parts
+    from repro_torch.kernels.allreduce_combine.ref import combine_ref
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    k, n = CG["ranks"], CG["rank_n"]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=k, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    out = Path(out_dir)
+    rec: dict = {"rank": rank}
+    try:
+        mesh = make_mesh((k,), ("data",), device=dev)
+        group = mesh.group("data")
+        lo, hi = rank * n // k, (rank + 1) * n // k
+        seeded = torch.randn((n, n, n), device=dev, generator=torch.Generator(
+            dev).manual_seed(CG["seed"]))[lo:hi].clone()
+        rhs = {"eigen": (cg_solver.eigen_rhs(n, (lo, hi), device=dev),
+                         CG["iters"]),
+               "seeded": (seeded, CG["seeded_iters"])}
+        one = json.loads((out / "cg_one.json").read_text())
+        for label, (b, iters) in rhs.items():
+            solve = cg_solver.make_cg(mesh, n, iters)
+            solve.pdot(b, b)                  # gloo's connections, cuBLAS
+            dist.barrier()
+            torch.cuda.synchronize()
+            ck.launches = 0
+            with collectives.counting() as c:
+                t0 = time.perf_counter()
+                x, res = solve(b)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = ck.launches
+            want = torch.from_numpy(np.array(np.load(
+                out / f"cg_one_{label}.npy", mmap_mode="r")[lo:hi])).to(dev)
+            rec[label] = {
+                "iters": iters, "wall_s": wall, "residual": float(res),
+                "combine_launches": launches,
+                "ppermute_bytes": c["bytes"].get("ppermute", 0),
+                "ppermute_ops": c["ops"].get("ppermute", 0),
+                "all_gather_bytes": c["bytes"]["all_gather"],
+                "max_abs_diff_vs_one_rank": (x - want).abs().max().item(),
+                "one_rank_max_abs_x": one[label]["max_abs_x"]}
+            del want
+        # the kernel on the CG's own partials: a pdot's (k, 1) gathered f32
+        checks = []
+        for u, v in ((x, x), (b, x)):
+            parts = collectives.all_gather_stack(
+                torch.vdot(u.reshape(-1), v.reshape(-1)).reshape(1), group)
+            got, plain = combine_parts(parts), combine_ref(parts)
+            checks.append({"shape": list(parts.shape),
+                           "err": (got - plain).abs().max().item(),
+                           "bitwise": bool(torch.equal(got, plain))})
+        rec["kernel_check"] = checks
+        u = rhs["eigen"][0]
+        solve = cg_solver.make_cg(mesh, n, 0)
+        # the same exchange on host copies of the slab's faces: gloo alone
+        faces = u[[0, -1]].cpu()
+        host = cg_solver.make_cg(make_mesh((k,), ("data",), device="cpu"),
+                                 n, 0)
+        for name, fn in (("pdot", lambda: solve.pdot(u, u)),
+                         ("halo_exchange", lambda: solve.halo_exchange(u)),
+                         ("halo_exchange_host",
+                          lambda: host.halo_exchange(faces))):
+            fn()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CG["reps"]):
+                fn()
+            torch.cuda.synchronize()
+            rec[f"{name}_ms"] = (time.perf_counter() - t0) / CG["reps"] * 1e3
+        (out / f"cg_rank{rank}.json").write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def cg_phase(smi: str) -> dict:
+    """Phase 39 (see the module docstring): emits the cg line; raises on a
+    failed gate. Returns the combine launches of (b) on rank 0."""
+    from repro_torch.examples import (allreduce_accel_demo, cg_solver,
+                                      quickstart, serve_lm, train_lm)
+    from repro_torch.launch.dryrun import DryCounters
+    t_phase = time.perf_counter()
+    hbm = card_peaks()[0]
+    bad = []
+    # (a) one rank: the peak reckoned on meta by the dry run's counters
+    n, iters = CG["n"], CG["iters"]
+    dry = {}
+    for it in (0, 2):
+        with DryCounters() as dry[it]:
+            cg_solver.make_cg(None, n, it, device="meta")(
+                cg_solver.eigen_rhs(n, device="meta"))
+    reckoned = dry[2].peak
+    cg_solver.make_cg(None, 64, 2, device="cuda")(
+        cg_solver.eigen_rhs(64, device="cuda"))      # cuBLAS, the allocator
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b = cg_solver.eigen_rhs(n, device="cuda")
+    walls = {}
+    for it in (0, iters):
+        solve = cg_solver.make_cg(None, n, it, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, res = solve(b)
+        torch.cuda.synchronize()
+        walls[it] = time.perf_counter() - t0
+        if it != iters:
+            del x, res              # not held through the next solve
+    peak = torch.cuda.max_memory_allocated() - held
+    residual = float(res)
+    err = cg_solver.analytic_error(x, b, n)
+    del x, res, b, solve
+    ms_iter = (walls[iters] - walls[0]) / iters * 1e3
+    least_bytes = CG_PASSES * n ** 3 * 4
+    one = {"n": n, "iters": iters, "points": n ** 3,
+           "vector_GB": n ** 3 * 4 / 1e9, "residual": residual,
+           "rel_err_vs_analytic": err, "solve_s": walls[iters],
+           "setup_s": walls[0], "ms_per_iteration": ms_iter,
+           "least_bytes_per_iteration": least_bytes,
+           "bound_ms_per_iteration": least_bytes / hbm * 1e3,
+           "share_of_bound": least_bytes / hbm * 1e3 / ms_iter,
+           "eager_bytes_per_iteration_meta": (
+               dry[2].bytes_accessed - dry[0].bytes_accessed) // 2,
+           "peak_bytes": peak, "reckoned_peak_bytes": reckoned,
+           "held_before_bytes": held}
+    if not (err < 5e-2 and math.isfinite(residual)):
+        bad.append(f"(a) n={n}: rel_err_vs_analytic {err}, residual "
+                   f"{residual}")
+    if not within_band(reckoned, peak):
+        bad.append(f"(a) peak {peak} B against the reckoned {reckoned} B")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the one-rank solves the ranks are held against, then the ranks
+    rn = CG["rank_n"]
+    cg_dir = ROOT / "build" / "cg"
+    shutil.rmtree(cg_dir, ignore_errors=True)
+    cg_dir.mkdir(parents=True)
+    one_rank = {}
+    gen = torch.Generator("cuda").manual_seed(CG["seed"])
+    for label, b, it in (
+            ("eigen", cg_solver.eigen_rhs(rn, device="cuda"), CG["iters"]),
+            ("seeded", torch.randn((rn,) * 3, device="cuda", generator=gen),
+             CG["seeded_iters"])):
+        x, res = cg_solver.make_cg(None, rn, it, device="cuda")(b)
+        np.save(cg_dir / f"cg_one_{label}.npy", x.cpu().numpy())
+        one_rank[label] = {"max_abs_x": x.abs().max().item(),
+                           "residual": float(res)}
+        del x, res, b
+    (cg_dir / "cg_one.json").write_text(json.dumps(one_rank))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        cg_worker, args=(free_port(), str(cg_dir)), nprocs=CG["ranks"],
+        join=True, start_method="spawn")
+    ranks_wall = time.perf_counter() - t0
+    ranks = [json.loads((cg_dir / f"cg_rank{r}.json").read_text())
+             for r in range(CG["ranks"])]
+    shutil.rmtree(cg_dir)
+    face = rn * rn * 4
+    for r in ranks:
+        for label in ("eigen", "seeded"):
+            q = r[label]
+            it = q["iters"]
+            lim = CG["tol"] * q["one_rank_max_abs_x"]
+            if not q["max_abs_diff_vs_one_rank"] <= lim:
+                bad.append(f"(b) rank {r['rank']} {label}: x "
+                           f"{q['max_abs_diff_vs_one_rank']} from the "
+                           f"one-rank solve > {lim}")
+            if q["combine_launches"] != 1 + 2 * it:
+                bad.append(f"(b) rank {r['rank']} {label}: "
+                           f"{q['combine_launches']} combine launches, "
+                           f"not {1 + 2 * it}")
+            if q["ppermute_bytes"] != 2 * (it + 1) * face:
+                bad.append(f"(b) rank {r['rank']} {label}: ppermute bytes "
+                           f"{q['ppermute_bytes']}, not "
+                           f"{2 * (it + 1) * face}")
+            if (not math.isfinite(q["residual"])
+                    or q["residual"] != ranks[0][label]["residual"]):
+                bad.append(f"(b) rank {r['rank']} {label}: residual "
+                           f"{q['residual']}")
+        for c in r["kernel_check"]:
+            if not c["err"] <= 1e-2:
+                bad.append(f"(b) rank {r['rank']}: combine on the CG's "
+                           f"partials {c}")
+    r0 = ranks[0]
+    ranks_line = {
+        "ranks": CG["ranks"], "mesh": {"data": CG["ranks"]},
+        "backend": "gloo (faces and partials through host memory)",
+        "n": rn, "slab": [rn // CG["ranks"], rn, rn], "face_bytes": face,
+        "one_rank": one_rank, "wall_s": ranks_wall,
+        "solves": {label: {
+            "iters": r0[label]["iters"], "wall_s_rank0": r0[label]["wall_s"],
+            "ms_per_iteration_rank0": r0[label]["wall_s"]
+            / r0[label]["iters"] * 1e3,
+            "residual": r0[label]["residual"],
+            "combine_launches_per_rank": [r[label]["combine_launches"]
+                                          for r in ranks],
+            "ppermute_bytes_per_rank": [r[label]["ppermute_bytes"]
+                                        for r in ranks],
+            "max_abs_diff_vs_one_rank": max(
+                r[label]["max_abs_diff_vs_one_rank"] for r in ranks),
+            "limit": CG["tol"] * r0[label]["one_rank_max_abs_x"]}
+            for label in ("eigen", "seeded")},
+        "kernel_check_rank0": r0["kernel_check"],
+        "pdot_ms": [r["pdot_ms"] for r in ranks],
+        "halo_exchange_ms": [r["halo_exchange_ms"] for r in ranks],
+        "halo_exchange_host_ms": [r["halo_exchange_host_ms"]
+                                  for r in ranks]}
+
+    emit({"phase": "cg", "one_rank": one, "ranks": ranks_line,
+          "host_s": time.perf_counter() - t_phase, "card": smi})
+
+    # (c) the examples' entry points on the card
+    t_examples = time.perf_counter()
+    examples = {}
+    for name, fn in (
+            ("cg_solver", lambda: cg_solver.main([])),
+            ("quickstart", lambda: quickstart.main([])),
+            ("allreduce_accel_demo", lambda: allreduce_accel_demo.main([])),
+            ("serve_lm", lambda: serve_lm.main([])),
+            ("train_lm", lambda: train_lm.main(["--small", "--steps",
+                                                "12"]))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                fn()
+            last = buf.getvalue().rstrip().splitlines()[-1]
+        except Exception as e:      # the line is emitted; the gate raises
+            traceback.print_exc()
+            last = f"{type(e).__name__}: {e}"
+        examples[name] = {"wall_s": time.perf_counter() - t0, "last": last}
+        if not last.endswith("OK"):
+            bad.append(f"(c) {name}: {last}")
+    emit({"phase": "cg_examples", "examples": examples,
+          "host_s": time.perf_counter() - t_examples, "card": smi})
+    if bad:
+        raise AssertionError("cg: " + "; ".join(bad))
+    return {"combine_launches": sum(r0[label]["combine_launches"]
+                                    for label in ("eigen", "seeded"))}
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -6738,6 +7042,7 @@ def main() -> int:
         ("jax-test-2", 1, 4, 4, 128, 128, 1024),
         ("jax-test-3", 2, 8, 1, 64, 128, 256),
         ("head-dim-80", 2, 32, 32, 80, 80, 1024),   # zamba2's shared block
+        ("head-dim-16", 4, 4, 2, 16, 16, 64),   # the serve_lm example's model
     ]
     # a row of 32768 on one kv head: its unit is shared by more CTAs than
     # one pass of the merge stages, so the merge runs in several passes
@@ -7191,6 +7496,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dryrun_phase(smi, ds["train_peak"], shard["dryrun"])
 
+    # --------------------------------------------------------------- 39. cg
+    gc.collect()
+    torch.cuda.empty_cache()
+    cg = cg_phase(smi)
+
     # ---------------------------------------------------------- summary
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": [{
@@ -7222,7 +7532,8 @@ def main() -> int:
             "check_reading")}}, {
         "name": "allreduce_combine", "route": "cuda", "source": COMBINE_SRC,
         "replaces": COMBINE_TPU_SRC,
-        "launches": dp_launches + shard["combine"]["launches"],
+        "launches": dp_launches + shard["combine"]["launches"]
+        + cg["combine_launches"],
         "max_abs_err": c_max_err, "ms": c_ms, "plain_ms": c_plain_ms,
         "bound_ms": c_bound_ms,
         "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
@@ -7231,7 +7542,8 @@ def main() -> int:
         "moe_ep": moe_readings["combine"],
         "deepseek": ds["allreduce_combine"], "shard": shard["combine"],
         "launches_by_path": {"dp": dp_launches,
-                             "shard": shard["combine"]["launches"]}},
+                             "shard": shard["combine"]["launches"],
+                             "cg": cg["combine_launches"]}},
         ssd_entry, mm_entry]})
     (OUT / "chip_smoke.json").write_text(json.dumps(LINES, indent=1))
     print(smi, flush=True)

@@ -27,9 +27,11 @@ the communication backend, as the reference's one ``psum``.
 With the gloo backend, CUDA tensors cross the wire through host memory
 (gloo has no all-to-all for them); the reductions stay on the card.
 
-Every collective of the port reaches the wire in one of three calls here:
+Every collective of the port reaches the wire in one of four calls here:
 ``all_gather`` (:func:`all_gather_stack`), ``all_to_all_single``
-(:func:`all_to_all`) and ``all_reduce`` (:func:`flat_allreduce`). Within
+(:func:`all_to_all`), ``all_reduce`` (:func:`flat_allreduce`) and the
+point-to-point sends and receives of :func:`ppermute` (the counterpart of
+``jax.lax.ppermute``: the conjugate-gradient example's halo exchange). Within
 :func:`counting` each call adds its output's bytes on this rank (the
 reference dry run's measure: what a chip injects into the fabric for the
 op) to a count by kind, by the logical op that :func:`tagged` names
@@ -80,6 +82,8 @@ def group_size(group) -> int:
 #: the open count of :func:`counting`, and the stack of :func:`tagged` names
 _count: dict | None = None
 _tags: list[str] = []
+#: the kinds every count holds; ``"ppermute"`` joins a count once a
+#: :func:`ppermute` has run in it
 KINDS = ("all_gather", "all_to_all", "all_reduce")
 
 
@@ -106,9 +110,9 @@ def counting():
 
 
 def _merge(into: dict, part: dict) -> None:
-    for k in KINDS:
-        into["bytes"][k] += part["bytes"][k]
-        into["ops"][k] += part["ops"][k]
+    for k in part["bytes"]:
+        into["bytes"][k] = into["bytes"].get(k, 0) + part["bytes"][k]
+        into["ops"][k] = into["ops"].get(k, 0) + part["ops"][k]
     for k, n in part["by_op"].items():
         into["by_op"][k] = into["by_op"].get(k, 0) + n
     into["cross_pod_bytes"] += part["cross_pod_bytes"]
@@ -129,8 +133,8 @@ def tagged(name: str):
 def _record(kind: str, nbytes: int, group) -> None:
     if _count is None:
         return
-    _count["bytes"][kind] += nbytes
-    _count["ops"][kind] += 1
+    _count["bytes"][kind] = _count["bytes"].get(kind, 0) + nbytes
+    _count["ops"][kind] = _count["ops"].get(kind, 0) + 1
     op = _tags[-1] if _tags else "other"
     _count["by_op"][op] = _count["by_op"].get(op, 0) + nbytes
     axes = group.axes if isinstance(group, DryGroup) else _GROUP_AXES.get(
@@ -188,6 +192,44 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     wire = _wire(src, group).reshape(-1).view(torch.uint8)
     out = torch.empty_like(wire)
     dist.all_to_all_single(out, wire, group=group)
+    return out.view(x.dtype).reshape(x.shape).to(x.device)
+
+
+def ppermute(x: torch.Tensor, perm, group) -> torch.Tensor:
+    """``x`` sent along ``perm``, a list of ``(src, dst)`` pairs of group
+    ranks with no source and no destination twice (the reference's
+    ``jax.lax.ppermute``): this rank gets the ``x`` of the rank that sends
+    to it, zeros where none does. Every send and receive is posted before
+    any is waited on (``batch_isend_irecv``), so a ring cannot deadlock;
+    peers are named by their global ranks (``dist.get_global_rank``), so
+    any group of a mesh works. Moved as bytes; gloo takes a CUDA tensor
+    through host memory. Counts ``x``'s bytes. Not differentiable."""
+    perm = [(int(s), int(d)) for s, d in perm]
+    k = group_size(group)
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if (len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts)
+            or not all(0 <= r < k for r in srcs + dsts)):
+        raise ValueError(f"perm {perm} must name distinct sources and "
+                         f"distinct destinations among {k} group ranks")
+    _record("ppermute", x.numel() * x.element_size(), group)
+    if isinstance(group, DryGroup):
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    me = dist.get_rank(group)
+    wire = _wire(x.contiguous(), group).reshape(-1).view(torch.uint8)
+    out = torch.zeros_like(wire)
+    ops = []
+    for s, d in perm:
+        if s == d == me:
+            out.copy_(wire)
+        elif s == me:
+            ops.append(dist.P2POp(dist.isend, wire,
+                                  dist.get_global_rank(group, d), group))
+        elif d == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(group, s), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
     return out.view(x.dtype).reshape(x.shape).to(x.device)
 
 

@@ -876,11 +876,14 @@ template <> constexpr int dtype_code<__nv_bfloat16>() { return 1; }
 
 }  // namespace
 
-// the instances: (dtype, dk, dv); kernel.HEAD_DIMS
+// the instances: (dtype, dk, dv); kernel.HEAD_DIMS. (16, 16) is the reduced
+// configs' head dim (the serve_lm example's model)
 #define FD_INSTANCES(X)                                                       \
   X(float, 64, 64) X(float, 128, 128) X(float, 64, 128) X(float, 80, 80)      \
+  X(float, 16, 16)                                                            \
   X(__nv_bfloat16, 64, 64) X(__nv_bfloat16, 128, 128)                         \
-  X(__nv_bfloat16, 64, 128) X(__nv_bfloat16, 80, 80)
+  X(__nv_bfloat16, 64, 128) X(__nv_bfloat16, 80, 80)                          \
+  X(__nv_bfloat16, 16, 16)
 
 // dtype: 0 = float32, 1 = bfloat16; (dk, dv) as in FD_INSTANCES. q (B,H,dk)
 // and out (B,H,dv) are contiguous; lse is a contiguous (B,H) f32 array, and

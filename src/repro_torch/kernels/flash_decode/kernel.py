@@ -28,7 +28,7 @@ SOURCES = [Path(__file__).parent / "csrc" / "flash_decode.cu"]
 SPAN = 32
 ROW_TILE = 8
 #: (dk, dv) pairs the source instantiates
-HEAD_DIMS = ((64, 64), (128, 128), (64, 128), (80, 80))
+HEAD_DIMS = ((64, 64), (128, 128), (64, 128), (80, 80), (16, 16))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the kernel in this process (one per :func:`flash_decode`
